@@ -1,0 +1,10 @@
+"""PyTorch + CUDA port of the EDST star-product training stack.
+
+The JAX package ``repro`` is the reference; this package imports nothing
+of it (nor of JAX).  The first slice covers the data-parallel training
+path whose gradient sync is the pipelined EDST allreduce: the core
+schedules (:mod:`repro_torch.core`), the tree-combine and int8 wire-codec
+kernels (:mod:`repro_torch.kernels.tree_combine`), a stacked one-device
+fabric (:mod:`repro_torch.dist.fabric`), the ``lm`` model family, AdamW
+and the training entry point (:mod:`repro_torch.launch.train`).
+"""

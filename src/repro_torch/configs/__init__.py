@@ -1,0 +1,11 @@
+"""Architecture registry of the port (the configs whose families it runs)."""
+from . import smollm_135m
+from .base import ArchConfig
+
+ARCHS = {m.CONFIG.name: m.CONFIG for m in (smollm_135m,)}
+
+
+def get(name: str) -> ArchConfig:
+    if name not in ARCHS:
+        raise KeyError(f"arch {name!r} is not ported; have {sorted(ARCHS)}")
+    return ARCHS[name]

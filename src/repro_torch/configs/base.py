@@ -1,0 +1,102 @@
+"""Architecture + shape configuration (own copy of the reference's
+``repro.configs.base``; the activation dtype maps through a torch table)."""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import torch
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                      # lm | moe | encdec | vlm | rglru | rwkv6
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0                # 0 -> d_model // n_heads
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    window: int | None = None        # sliding-window attention
+    mlp_kind: str = "swiglu"
+    norm_kind: str = "rmsnorm"
+    # moe
+    n_experts: int = 0
+    top_k: int = 0
+    d_expert: int = 0
+    n_shared: int = 0
+    moe_renorm: bool = True
+    moe_group_size: int = 512
+    moe_capacity_factor: float = 1.0
+    moe_seq_shard_out: bool = False
+    # encdec
+    n_dec_layers: int = 0
+    # vlm
+    n_img_tokens: int = 1_024
+    # rglru (recurrentgemma)
+    lru_width: int = 0               # 0 -> d_model
+    pattern: tuple = ()              # e.g. ("rec", "rec", "attn")
+    conv_width: int = 4
+    # rwkv6
+    head_size: int = 64
+    # runtime
+    act_dtype_name: str = "bfloat16"
+    remat: bool = True
+    q_block: int = 1_024
+    kv_block: int = 1_024
+    aux_loss_weight: float = 0.01
+    tp_divisor: int = 16             # model-axis size params get padded for
+    skip_shapes: tuple = ()
+    skip_reason: str = ""
+
+    # -- derived -------------------------------------------------------------
+    @property
+    def head_dim_(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def vocab_padded(self) -> int:
+        m = 16 * self.tp_divisor
+        return -(-self.vocab // m) * m
+
+    @property
+    def act_dtype(self) -> torch.dtype:
+        return DTYPES[self.act_dtype_name]
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    def param_count(self) -> int:
+        """Approximate parameter count N (for MODEL_FLOPS = 6 N D)."""
+        d, hd = self.d_model, self.head_dim_
+        attn = d * hd * (self.n_heads * 2 + self.n_kv * 2)
+        mult = 3 if self.mlp_kind in ("swiglu", "geglu") else 2
+        ffn = mult * d * self.d_ff
+        return self.n_layers * (attn + ffn) + self.vocab * d
+
+    def reduced(self) -> "ArchConfig":
+        """Tiny same-family config for CPU smoke tests (the reference's
+        ``reduced()`` for the families this package runs)."""
+        heads = min(self.n_heads, 4)
+        kv = max(1, min(self.n_kv, heads))
+        while heads % kv:
+            kv -= 1
+        kw = dict(
+            n_layers=len(self.pattern) or 2,
+            d_model=128, n_heads=heads, n_kv=kv, head_dim=32,
+            d_ff=192, vocab=256, tp_divisor=1,
+            q_block=64, kv_block=64, remat=False,
+            act_dtype_name="float32",
+        )
+        if self.window is not None:
+            kw.update(window=32)
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,206 @@
+"""Shared layers of the ``lm`` family: norms, rotary embeddings, GQA
+attention, the gated MLP, embeddings and the chunked cross-entropy.
+
+Parameters are plain dicts of tensors that mirror the reference's tree key
+for key (``repro/models/layers.py``).  The casts follow the reference
+exactly: parameters stay f32 and are cast to the activation dtype where
+they are used; norms and the softmax run in f32.  Attention is plain
+matmuls, an f32 softmax and the ``-1e30`` mask, as the reference computes
+it outside any kernel.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+# f32 matrix products run in full f32 on the card, as in the reference
+torch.backends.cuda.matmul.allow_tf32 = False
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+def ninit(gen, shape, scale=None, device="cpu"):
+    """Normal init scaled by ``1/sqrt(shape[0])`` of the shape given (the
+    per-layer shape for stacked layers), or by ``scale``."""
+    scale = scale if scale is not None else 1.0 / np.sqrt(shape[0])
+    return torch.randn(shape, generator=gen, device=device,
+                       dtype=torch.float32) * float(scale)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def init_rmsnorm(d, device="cpu"):
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+
+
+def rmsnorm(p, x, eps=1e-6):
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
+    return (x * p["scale"]).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope(x, positions, theta=10000.0):
+    """x: (..., S, H, D); positions: (S,) int."""
+    d = x.shape[-1]
+    inv = torch.as_tensor(1.0 / (theta ** (np.arange(0, d, 2) / d)),
+                          dtype=torch.float32, device=x.device)
+    ang = positions[..., :, None].float() * inv             # (..., S, D/2)
+    ang = ang[..., None, :]                                  # (..., S, 1, D/2)
+    sin, cos = torch.sin(ang), torch.cos(ang)
+    x1, x2 = x[..., : d // 2], x[..., d // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention (GQA)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AttnCfg:
+    d_model: int
+    n_heads: int
+    n_kv: int
+    head_dim: int
+    window: int | None = None       # sliding-window size (None = full)
+    rope_theta: float = 10000.0
+
+
+def init_attention(gen, cfg: AttnCfg, device="cpu"):
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
+    return {
+        "wq": ninit(gen, (d, h, hd), device=device),
+        "wk": ninit(gen, (d, kv, hd), device=device),
+        "wv": ninit(gen, (d, kv, hd), device=device),
+        "wo": ninit(gen, (h, hd, d), scale=1.0 / np.sqrt(h * hd),
+                    device=device),
+    }
+
+
+def attention(p, cfg: AttnCfg, x, positions):
+    """Causal self-attention.  x: (B, S, d); positions: (S,) int."""
+    dt = x.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    out = sdpa(q, k, v, positions, positions, cfg)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
+
+
+def _mask(qp, kp, cfg: AttnCfg, mask_mode):
+    """(S, T) bool mask from positions (the reference's ``_block_mask``)."""
+    m = (kp[None, :] < 10 ** 9).expand(qp.shape[0], kp.shape[0])
+    if mask_mode == "causal":
+        m = m & (kp[None, :] <= qp[:, None])
+        if cfg.window is not None:
+            m = m & (kp[None, :] > qp[:, None] - cfg.window)
+    return m
+
+
+def sdpa(q, k, v, q_pos, kv_pos, cfg: AttnCfg, mask_mode="causal"):
+    """Softmax attention over all keys at once: the query-key product in
+    the activation dtype, scaled and masked to ``-1e30`` in f32, an f32
+    softmax whose weights are cast to the activation dtype for the value
+    product, as the reference's blockwise ``sdpa`` does within one block.
+
+    q: (B,S,H,D); k,v: (B,T,KV,D) -> (B,S,H,D).  Heads are grouped as the
+    reference groups them: head ``h = kv * g + j``."""
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    qg = q.reshape(b, s, kv, g, d)
+    # the reference scales by a numpy f64 scalar, which promotes the
+    # activation-dtype product to f32 before the scale
+    logits = torch.einsum("bqkgd,btkd->bkgqt", qg, k).float() \
+        * np.float32(1.0 / np.sqrt(d))
+    mask = _mask(q_pos, kv_pos, cfg, mask_mode)
+    logits = torch.where(mask, logits, -1e30)
+    m = logits.amax(-1).clamp_min(-1e30)
+    p_ = torch.exp(logits - m[..., None])
+    l_ = p_.sum(-1)
+    acc = torch.einsum("bkgqt,btkd->bkgqd", p_.to(q.dtype), v).float()
+    out = (acc / l_.clamp_min(1e-30)[..., None]).to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def init_glu_mlp(gen, d, f, device="cpu"):
+    return {"wi_gate": ninit(gen, (d, f), device=device),
+            "wi_up": ninit(gen, (d, f), device=device),
+            "wo": ninit(gen, (f, d), device=device)}
+
+
+def glu_mlp(p, x, kind="swiglu"):
+    act = torch.nn.functional.silu if kind == "swiglu" \
+        else torch.nn.functional.gelu
+    dt = x.dtype
+    g = torch.einsum("bsd,df->bsf", x, p["wi_gate"].to(dt))
+    u = torch.einsum("bsd,df->bsf", x, p["wi_up"].to(dt))
+    return torch.einsum("bsf,fd->bsd", act(g) * u, p["wo"].to(dt))
+
+
+# ---------------------------------------------------------------------------
+# embedding / unembedding / loss
+# ---------------------------------------------------------------------------
+
+def init_embedding(gen, vocab_padded, d, device="cpu"):
+    return {"table": ninit(gen, (vocab_padded, d), scale=0.02,
+                           device=device)}
+
+
+def embed(p, tokens, dtype=torch.bfloat16):
+    return p["table"].to(dtype)[tokens]
+
+
+def unembed(p, x, vocab: int):
+    """Logits against the (tied) embedding table; padded slots masked."""
+    logits = torch.einsum("bsd,vd->bsv", x, p["table"].to(x.dtype))
+    vp = p["table"].shape[0]
+    if vp != vocab:
+        keep = torch.arange(vp, device=x.device)[None, None, :] < vocab
+        logits = torch.where(keep, logits, -1e30)
+    return logits
+
+
+def chunked_unembed_xent(embed_p, x, labels, vocab: int, chunk: int = 512,
+                         z_loss=1e-4):
+    """Mean token cross-entropy (plus ``z_loss * lse**2``) over
+    tied-embedding logits, in sequence chunks of ``chunk`` as the reference
+    sums them (without its recompute: autograd keeps each chunk's logits).
+    Labels ``-1`` are padding.  x: (B, S, d), labels (B, S)."""
+    b, s, _ = x.shape
+    c = min(chunk, s)
+    s_pad = -(-s // c) * c
+    if s_pad != s:
+        x = torch.nn.functional.pad(x, (0, 0, 0, s_pad - s))
+        labels = torch.nn.functional.pad(labels, (0, s_pad - s), value=-1)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, s_pad, c):
+        xc, lc = x[:, i:i + c], labels[:, i:i + c]
+        logits = unembed(embed_p, xc, vocab).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, lc.clamp_min(0)[..., None])[..., 0]
+        loss = lse - ll
+        if z_loss:
+            loss = loss + z_loss * lse ** 2
+        valid = (lc >= 0).float()
+        tot = tot + (loss * valid).sum()
+        cnt = cnt + valid.sum()
+    return tot / cnt.clamp_min(1.0)

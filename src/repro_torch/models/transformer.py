@@ -1,0 +1,95 @@
+"""Decoder-only transformer LM, ``lm`` family without MoE (the reference's
+``repro/models/transformer.py``): pre-norm GQA attention + gated MLP
+blocks, tied embeddings.
+
+Layer parameters are stacked along a leading ``layers`` dimension, as the
+reference stacks them for its ``scan``; the forward unbinds them once (one
+gradient buffer per stacked leaf in the backward) and loops.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import layers as L
+
+
+def attn_cfg(cfg) -> L.AttnCfg:
+    if cfg.qkv_bias or cfg.qk_norm or cfg.is_moe:
+        raise NotImplementedError(f"{cfg.name}: qkv bias, qk-norm and MoE "
+                                  "are not ported")
+    return L.AttnCfg(d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+                     head_dim=cfg.head_dim_, window=cfg.window,
+                     rope_theta=cfg.rope_theta)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_layer(cfg, gen, device="cpu"):
+    return {
+        "ln1": L.init_rmsnorm(cfg.d_model, device),
+        "attn": L.init_attention(gen, attn_cfg(cfg), device),
+        "ln2": L.init_rmsnorm(cfg.d_model, device),
+        "mlp": L.init_glu_mlp(gen, cfg.d_model, cfg.d_ff, device),
+    }
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def init_lm(cfg, gen: torch.Generator, device="cpu"):
+    """Parameters drawn from ``gen`` (a generator on ``device``).  The
+    numbers differ from the reference's ``jax.random`` ones; the tree, the
+    shapes and the scales are the same."""
+    return {
+        "embed": L.init_embedding(gen, cfg.vocab_padded, cfg.d_model, device),
+        "layers": _stack([init_layer(cfg, gen, device)
+                          for _ in range(cfg.n_layers)]),
+        "final_norm": L.init_rmsnorm(cfg.d_model, device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def _unbind(tree):
+    if isinstance(tree, dict):
+        per = {k: _unbind(v) for k, v in tree.items()}
+        n = len(next(iter(per.values())))
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    return tree.unbind(0)
+
+
+def _block(cfg, lp, x, positions):
+    h = L.attention(lp["attn"], attn_cfg(cfg), L.rmsnorm(lp["ln1"], x),
+                    positions)
+    x = x + h
+    h2 = L.rmsnorm(lp["ln2"], x)
+    return x + L.glu_mlp(lp["mlp"], h2, cfg.mlp_kind)
+
+
+def forward(cfg, params, tokens, *, return_hidden=False):
+    """tokens: (B, S) int.  Returns logits (B, S, vocab_padded), or the
+    final-normed hidden states with ``return_hidden``."""
+    x = L.embed(params["embed"], tokens, dtype=cfg.act_dtype)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    for lp in _unbind(params["layers"]):
+        x = _block(cfg, lp, x, positions)
+    x = L.rmsnorm(params["final_norm"], x)
+    if return_hidden:
+        return x
+    return L.unembed(params["embed"], x, cfg.vocab)
+
+
+def loss_fn(cfg, params, batch):
+    """Next-token loss on ``batch["tokens"]`` (B, S + 1)."""
+    tokens = batch["tokens"]
+    hidden = forward(cfg, params, tokens[:, :-1], return_hidden=True)
+    loss = L.chunked_unembed_xent(params["embed"], hidden, tokens[:, 1:],
+                                  cfg.vocab)
+    return loss, {"xent": loss}
