@@ -3,22 +3,27 @@
 
     python3 chip_smoke.py
 
-Builds the tree-combine / int8 wire-codec kernels from the sources in this
-checkout, holds each against its plain PyTorch version at the training
-path's shapes (and at ragged small ones) and times it, sums a full-size
-stacked gradient with the EDST engine (4x4 torus f32 and int8, ring 16
-int8), and trains the full-width smollm-135m data-parallel over the 16
-vertices of the 4x4 torus (edst, edst + int8 wire, psum_dp) and of the
-ring 16 (edst + int8 wire, the fabric whose reduce hops run q8_combine).
-Every failed check raises, so the exit code is non-zero and no result
-line is printed.  The last line is
+Builds the port's three kernel libraries (tree-combine / int8 wire codec,
+flash attention, RG-LRU scan) from the sources in this checkout, one
+``nvcc`` per source, all at once; holds each kernel against its plain
+PyTorch version at ragged small shapes and at every shape its path gives
+it, and times it; sums a full-size stacked gradient with the EDST engine
+(4x4 torus f32 and int8, ring 16 int8); trains the full-width smollm-135m
+data-parallel over the 16 vertices of the 4x4 torus (edst, edst + int8
+wire, psum_dp) and of the ring 16 (edst + int8 wire, the fabric whose
+reduce hops run q8_combine); and serves the full-width recurrentgemma-2b
+(batch 8, prompt 4096, 32 tokens, bf16) and smollm-135m (batch 8, prompt
+1024, 32 tokens) through the serving entry point, each followed by an f32
+check that a decode step's logits equal those of a prefill of the same
+tokens.  Every failed check raises, so the exit code is non-zero and no
+result line is printed.  The last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 preceded by one JSON line ``{"kernels": [...]}`` (launches summed over
-the training runs, each counted from 0 just before its run and read just
-after it; times from CUDA events in this run) and the card's name and
-power limit from nvidia-smi.
+the runs of each kernel's path, training or serving, each run counted
+from 0 just before it and read just after it; times from CUDA events in
+this run) and the card's name and power limit from nvidia-smi.
 
 It needs a CUDA device and the repository around it; without either it
 exits non-zero.
@@ -37,6 +42,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 N_VERT = 16
 N_PARAMS = 134_515_008         # smollm-135m, the stacked payload's width
 M_ROW = N_PARAMS // 2          # one chunk row on the 4x4 torus (k=2)
@@ -72,23 +78,51 @@ def max_err(a, b):
     return float((a - b).abs_().max())
 
 
-def bound_ms(nbytes, ops):
-    """The least time for the work: bytes over HBM rate or f32 operations
-    over the f32 rate, whichever is larger."""
-    b, o = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+def bound_ms(nbytes, ops, ops_per_s=F32_OPS_PER_S):
+    """The least time for the work: bytes over HBM rate or operations over
+    the rate of their type, whichever is larger."""
+    b, o = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (b, "bytes") if b >= o else (o, "operations")
 
 
-def phase_build():
+def libraries():
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.rglru import kernel as RK
     from repro_torch.kernels.tree_combine import kernel as K
+    return {"tree_combine": K, "flash_attention": FK, "rglru": RK}
+
+
+def phase_build():
+    from repro_torch.kernels._build import build_all
+    mods = libraries()
     t0 = time.perf_counter()
-    path = K.build()
-    K._lib()
-    log(f"build: {path.name} in {time.perf_counter() - t0:.1f}s "
-        f"(nvcc {K.BUILD_INFO.get('seconds', 0.0):.1f}s)")
-    for line in K.BUILD_INFO.get("log", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"ptxas: {line.strip()}")
+    build_all([m.LIB for m in mods.values()])
+    for m in mods.values():
+        m.LIB.load()
+    log(f"build: {len(mods)} libraries in {time.perf_counter() - t0:.1f}s")
+    for name, m in mods.items():
+        info = m.LIB.info
+        log(f"build {name}: {Path(info['path']).name} "
+            f"(nvcc {info.get('seconds', 0.0):.1f}s)")
+        for line in info.get("log", "").splitlines():
+            if "registers" in line or "spill" in line or "entry" in line:
+                log(f"ptxas {name}: {line.strip()}")
+
+
+def timed_row(name, src, replaces, err, fn, plain, library, nbytes, ops,
+              ops_per_s=F32_OPS_PER_S):
+    """Time the kernel, its plain version and the library call; return the
+    kernel's row of the result line (launches are filled in later)."""
+    ms, pms = timed(fn), timed(plain)
+    lms = timed(library) if library is not None else None
+    b, by = bound_ms(nbytes, ops, ops_per_s)
+    log(f"{name}: {ms:.3f} ms (bound {b:.3f} ms by {by}, plain "
+        f"{pms:.3f} ms, library {lms if lms is None else round(lms, 3)}"
+        f" ms), max_abs_err {err:g}")
+    return {"name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": pms, "bound_ms": b, "bound_by": by,
+            "library_ms": lms}
 
 
 def phase_kernels(dev):
@@ -134,16 +168,8 @@ def phase_kernels(dev):
     ref_file = "src/repro/kernels/tree_combine/kernel.py"
 
     def row(name, line, err, fn, plain, library, nbytes, ops):
-        ms, pms = timed(fn), timed(plain)
-        lms = timed(library) if library is not None else None
-        b, by = bound_ms(nbytes, ops)
-        log(f"{name}: {ms:.3f} ms (bound {b:.3f} ms by {by}, plain "
-            f"{pms:.3f} ms, library {lms if lms is None else round(lms, 3)}"
-            f" ms), max_abs_err {err:g}")
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": f"{ref_file}:{line}", "launches": 0,
-                     "max_abs_err": err, "ms": ms, "plain_ms": pms,
-                     "bound_ms": b, "bound_by": by, "library_ms": lms})
+        rows.append(timed_row(name, src, f"{ref_file}:{line}", err, fn,
+                              plain, library, nbytes, ops))
 
     # the reduce-hop accumulate: recv (1, 16*m), partial (16*m,)
     length = N_VERT * M_ROW
@@ -190,6 +216,229 @@ def phase_kernels(dev):
         torch.cuda.empty_cache()
         log(f"kernels: codec at {shape} matches the plain versions")
     return rows
+
+
+# (b, s, h, kv, d, causal, window): the reference's five kernel-test
+# cases, then the two serving layouts at ragged lengths
+FLASH_SMALL = ((2, 128, 8, 2, 64, True, None), (1, 100, 4, 4, 32, True, None),
+               (2, 256, 8, 1, 128, True, 48), (1, 128, 2, 2, 64, False, None),
+               (1, 64, 4, 2, 128, True, None), (2, 333, 10, 1, 256, True, 100),
+               (3, 301, 9, 3, 64, True, None))
+# the prefill attention of each served model: (b, s, h, kv, d, window)
+FLASH_PATH = {"recurrentgemma-2b": (8, 4096, 10, 1, 256, 2048),
+              "smollm-135m": (8, 1024, 9, 3, 64, None)}
+# (batch, prompt, generated tokens) served per model
+SERVE = {"recurrentgemma-2b": (8, 4096, 32), "smollm-135m": (8, 1024, 32)}
+RG_SCAN = (8, 4096, 2560)      # one RG-LRU layer's scan in that prefill
+PATH_LAUNCHES = {"recurrentgemma-2b": {"flash_attention": 8,
+                                       "rglru_scan": 18},
+                 "smollm-135m": {"flash_attention": 30, "rglru_scan": 0}}
+
+
+def live_pairs(s, window):
+    """(query, key) pairs per head that causality and the window keep."""
+    return sum(min(t + 1, window) if window else t + 1 for t in range(s))
+
+
+def phase_flash(dev):
+    """Flash attention against its plain version at ragged shapes and at
+    each serving path's prefill shape; returns its row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def qkv(b, s, h, kv, d, dt):
+        return (torch.randn((b, s, n, d), generator=g, device=dev).to(dt)
+                for n in (h, kv, kv))
+
+    # the reference's tolerances: f32 sums in another order; bf16 one
+    # rounding of the f32 output
+    tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    for b, s, h, kv, d, causal, window in FLASH_SMALL:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = qkv(b, s, h, kv, d, dt)
+            err = max_err(FK.flash_attention(q, k, v, causal=causal,
+                                             window=window).float(),
+                          attention_ref(q, k, v, causal=causal,
+                                        window=window).float())
+            assert err < tol[dt], ("flash_attention", b, s, h, kv, d,
+                                   causal, window, dt, err)
+    torch.cuda.synchronize()
+    log("flash_attention: ragged shapes match the plain version")
+
+    timings = {}
+    for arch, (b, s, h, kv, d, window) in FLASH_PATH.items():
+        q, k, v = qkv(b, s, h, kv, d, torch.bfloat16)
+        err = max_err(FK.flash_attention(q, k, v, window=window).float(),
+                      attention_ref(q, k, v, window=window).float())
+        assert err < tol[torch.bfloat16], ("flash_attention", arch, err)
+        pos = torch.arange(s, device=dev)
+        mask = pos[None, :] <= pos[:, None]
+        if window:
+            mask &= pos[None, :] > pos[:, None] - window
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        nbytes = sum(x.numel() * 2 for x in (q, k, v, q))
+        ops = 4 * b * h * d * live_pairs(s, window)
+        log(f"flash_attention at {arch}'s prefill {tuple(q.shape)} / "
+            f"{tuple(k.shape)} bf16, window {window}: {ops:.4g} operations")
+        timings[arch] = timed_row(
+            "flash_attention",
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:85", err,
+            lambda: FK.flash_attention(q, k, v, window=window),
+            lambda: attention_ref(q, k, v, window=window),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   attn_mask=mask,
+                                                   enable_gqa=True),
+            nbytes, ops, BF16_OPS_PER_S)
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    row = timings.pop("recurrentgemma-2b")
+    row["shape"] = "recurrentgemma-2b prefill"
+    row["other_shapes"] = {f"{a} prefill": {k: r[k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms")} for a, r in timings.items()}
+    return row
+
+
+def phase_rglru(dev):
+    """The RG-LRU scan against its plain version at ragged shapes and at
+    the recurrentgemma-2b prefill's; returns its row."""
+    import torch
+    from repro_torch.kernels.rglru import kernel as RK
+    from repro_torch.kernels.rglru.ref import rglru_ref
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def gates(b, t, w):
+        """The model's decays a = exp(-8 softplus(lam) r) and inputs."""
+        lam = torch.linspace(0.9, 4.0, w, device=dev)
+        r = torch.sigmoid(torch.randn((b, t, w), generator=g, device=dev))
+        a = torch.exp(-8.0 * torch.nn.functional.softplus(lam) * r)
+        bx = torch.sqrt(1 - a * a) * torch.randn((b, t, w), generator=g,
+                                                  device=dev)
+        return a, bx
+
+    # the kernel rounds the multiply and the add as the plain loop does,
+    # so the two agree bit for bit
+    for b, t, w in ((2, 100, 48), (3, 17, 8), (1, 257, 130)):
+        a, bx = gates(b, t, w)
+        for h0 in (None, torch.randn((b, w), generator=g, device=dev)):
+            h, hl = RK.rglru_scan(a, bx, h0)
+            rh, rl = rglru_ref(a, bx, h0)
+            assert torch.equal(h, rh) and torch.equal(hl, rl), (b, t, w)
+    torch.cuda.synchronize()
+    log("rglru_scan: ragged shapes match the plain version bit for bit")
+
+    a, bx = gates(*RG_SCAN)
+    h, hl = RK.rglru_scan(a, bx)
+    rh, rl = rglru_ref(a, bx)
+    err = max(max_err(h, rh), max_err(hl, rl))
+    assert err == 0.0, ("rglru_scan", err)
+    del h, hl, rh, rl
+    n = a.numel()
+    row = timed_row("rglru_scan",
+                    "src/repro_torch/kernels/rglru/csrc/rglru.cu",
+                    "src/repro/kernels/rglru/kernel.py:45", err,
+                    lambda: RK.rglru_scan(a, bx), lambda: rglru_ref(a, bx),
+                    None, 3 * n * 4 + RG_SCAN[0] * RG_SCAN[2] * 4, 2 * n)
+    row["shape"] = "recurrentgemma-2b prefill"
+    del a, bx
+    torch.cuda.empty_cache()
+    return row
+
+
+def reset_all():
+    for m in libraries().values():
+        m.reset_launches()
+
+
+def counts():
+    out = {}
+    for m in libraries().values():
+        out.update(m.LAUNCHES)
+    return out
+
+
+def f32_decode_check(dev, arch, prompt):
+    """At full width in f32: prefill ``prompt`` tokens, decode one, and
+    hold the decode's logits (plain attention over the cache, one plain
+    recurrence step) against the last logits of a prefill of the same
+    ``prompt + 1`` tokens (the kernels).  The two sum in different orders
+    (kernel tiles against a one-block softmax, a sequential scan against
+    one step, other matmul shapes).  On an H100 that reorder gave 1.3e-5
+    (recurrentgemma-2b) and 2.5e-6 (smollm-135m) of the largest logit, so
+    the limit is 1e-4 of it: 8 and 40 times those readings."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch.serve import model_fns
+    cfg = dataclasses.replace(configs.get(arch), act_dtype_name="float32")
+    init, prefill, decode = model_fns(cfg)
+    b = SERVE[arch][0]
+    with torch.inference_mode():
+        params = init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        prompts = torch.randint(0, cfg.vocab, (b, prompt), generator=gen,
+                                device=dev)
+        logits, caches = prefill(params, prompts, prompt + 1)
+        tok = logits[:, :cfg.vocab].argmax(-1)[:, None]
+        dec, _ = decode(params, caches, tok, prompt)
+        del caches
+        full, _ = prefill(params, torch.cat([prompts, tok], 1), prompt + 1)
+        dec, full = dec[:, :cfg.vocab], full[:, :cfg.vocab]
+        err = max_err(dec, full)
+        scale = float(full.abs().max())
+        same = bool((dec.argmax(-1) == full.argmax(-1)).all())
+    tol = 1e-4 * max(1.0, scale)
+    log(f"f32 check {arch}: decode at {prompt} vs prefill of {prompt + 1}: "
+        f"max|dlogit| {err!r} <= {tol!r} (1e-4 * max(1, max|logit| "
+        f"{scale!r})), greedy tokens equal {same}")
+    assert math.isfinite(err) and err <= tol, (arch, err, tol)
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_serve(dev):
+    """Full-width serving through the entry point, one run per model, each
+    counted from 0 just before it and read just after; then the f32 check
+    of each.  Each counted run follows an uncounted one at the same shape
+    (one token), so its prefill is timed warm: the memory pool already
+    grown and each matmul shape's first cuBLAS call behind it.  Returns
+    ``{run: {kernel: launches}}``."""
+    import torch
+    from repro_torch.launch import serve
+    per_run = {}
+    for arch, (batch, prompt, gen) in SERVE.items():
+        argv = ["--arch", arch, "--batch", str(batch), "--prompt-len",
+                str(prompt), "--device", "cuda"]
+        torch.cuda.empty_cache()
+        cold = serve.main(argv + ["--gen", "1"]).prefill_seconds
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all()
+        t0 = time.perf_counter()
+        res = serve.main(argv + ["--gen", str(gen)])
+        torch.cuda.synchronize()
+        tag = f"serve {arch}"
+        per_run[tag] = c = counts()
+        peak = torch.cuda.max_memory_allocated()
+        log(f"{tag}: batch {batch} x prompt {prompt}, {gen} tokens, bf16: "
+            f"prefill {res.prefill_seconds!r}s warm, {cold!r}s cold "
+            f"({batch * prompt / res.prefill_seconds!r} tok/s warm), decode "
+            f"{res.decode_tokens_per_s!r} tok/s, peak memory "
+            f"{peak / 1e9:.2f} GB, {time.perf_counter() - t0:.1f}s in all, "
+            f"launches {c}")
+        log(f"{tag}: first row {res.tokens[0].tolist()}")
+        assert tuple(res.tokens.shape) == (batch, gen), res.tokens.shape
+        assert bool(torch.isfinite(res.last_logits.float()).all()), tag
+        for name, n in PATH_LAUNCHES[arch].items():
+            assert c[name] == n, (tag, name, c[name], n)
+        del res
+        f32_decode_check(dev, arch, prompt)
+    return per_run
 
 
 def phase_allreduce(dev):
@@ -248,7 +497,6 @@ def phase_train(dev):
     per path.  Every launch counter is set to 0 just before each run and
     read just after it; returns ``{run: {kernel: launches}}``."""
     import torch
-    from repro_torch.kernels.tree_combine import kernel as K
     from repro_torch.launch import train
     from repro_torch.optim.adamw import tree_leaves
     base = ["--arch", "smollm-135m", "--batch", "32", "--seq", "256",
@@ -257,11 +505,11 @@ def phase_train(dev):
     torch.cuda.reset_peak_memory_stats()
 
     def run(tag, extra, keep=False):
-        K.reset_launches()
+        reset_all()
         t0 = time.perf_counter()
         res = train.main(base + extra, keep_first_step=keep)
         torch.cuda.synchronize()
-        per_run[tag] = dict(K.LAUNCHES)
+        per_run[tag] = counts()
         dt = time.perf_counter() - t0
         assert all(math.isfinite(v) for v in res.losses), (tag, res.losses)
         log(f"train {tag}: losses {res.losses}, grad norms "
@@ -312,21 +560,22 @@ def main():
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         sys.exit(f"chip_smoke: no repro_torch package under {SRC}")
     sys.path.insert(0, str(SRC))
-    from repro_torch.kernels.tree_combine import kernel as K
     dev = torch.device("cuda", 0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     phase_build()
-    rows = phase_kernels(dev)
+    rows = phase_kernels(dev) + [phase_flash(dev), phase_rglru(dev)]
 
     phase_allreduce(dev)
-    per_run = phase_train(dev)      # the main path: its launches count
+    # the main paths, each run counted on its own
+    per_run = phase_train(dev)
+    per_run.update(phase_serve(dev))
     launches = {name: sum(c[name] for c in per_run.values())
-                for name in K.LAUNCHES}
-    log(f"launches over the training runs: {launches}")
+                for name in counts()}
+    log(f"launches over the training and serving runs: {launches}")
     for name, n in launches.items():
-        assert n > 0, f"{name} never launched on the main path"
+        assert n > 0, f"{name} never launched on its path"
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["launches_by_path"] = {tag: c[r["name"]]

@@ -6,5 +6,9 @@ path whose gradient sync is the pipelined EDST allreduce: the core
 schedules (:mod:`repro_torch.core`), the tree-combine and int8 wire-codec
 kernels (:mod:`repro_torch.kernels.tree_combine`), a stacked one-device
 fabric (:mod:`repro_torch.dist.fabric`), the ``lm`` model family, AdamW
-and the training entry point (:mod:`repro_torch.launch.train`).
+and the training entry point (:mod:`repro_torch.launch.train`).  The
+second slice is serving (:mod:`repro_torch.launch.serve`): the ``lm`` and
+``rglru`` families' prefill and decode, with the flash attention and
+RG-LRU scan kernels (:mod:`repro_torch.kernels.flash_attention`,
+:mod:`repro_torch.kernels.rglru`).
 """

@@ -1,8 +1,8 @@
 """Architecture registry of the port (the configs whose families it runs)."""
-from . import smollm_135m
+from . import recurrentgemma_2b, smollm_135m
 from .base import ArchConfig
 
-ARCHS = {m.CONFIG.name: m.CONFIG for m in (smollm_135m,)}
+ARCHS = {m.CONFIG.name: m.CONFIG for m in (smollm_135m, recurrentgemma_2b)}
 
 
 def get(name: str) -> ArchConfig:

@@ -97,6 +97,8 @@ class ArchConfig:
             q_block=64, kv_block=64, remat=False,
             act_dtype_name="float32",
         )
-        if self.window is not None:
+        if self.family == "rglru":
+            kw.update(lru_width=128, window=32, head_dim=32)
+        if self.window is not None and self.family != "rglru":
             kw.update(window=32)
         return dataclasses.replace(self, **kw)

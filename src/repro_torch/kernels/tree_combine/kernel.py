@@ -1,12 +1,9 @@
 """ctypes wrappers of the Hopper tree-combine and int8 wire-codec kernels
 (``csrc/tree_combine.cu``).
 
-The shared library is built from the source in this package at first use
-(``nvcc`` for ``sm_90a``, no fast math: the pack must stay byte-identical
-to the plain version) into ``build/kernels/`` at the repository root, or
-``$REPRO_TORCH_BUILD_DIR``, under a name keyed by the source's and flags'
-hash, so a stale build is never loaded.  Nothing is built or loaded when
-this module is imported.
+The shared library is built by :mod:`repro_torch.kernels._build` at first
+use (no fast math: the pack must stay byte-identical to the plain
+version).  Nothing is built or loaded when this module is imported.
 
 Every wrapper takes CUDA tensors only, checks device, dtype, shape and
 contiguity, allocates its outputs (and the pack's scratch) with
@@ -18,28 +15,24 @@ to its entry in :data:`LAUNCHES`.  The CPU path never comes here: see
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "tree_combine.cu"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+from .._build import Library, check_cuda, launched, stream
+
+_p, _i64, _i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+LIB = Library(Path(__file__).resolve().parent / "csrc" / "tree_combine.cu",
+              "tree_combine", {
+                  "tree_combine": [_i32, _p, _p, _p, _i64, _i64, _p],
+                  "q8_pack_rows": [_p, _p, _p, _i64, _i64, _p],
+                  "q8_combine_rows": [_p, _p, _p, _i64, _i64, _p],
+                  "q8_unpack_rows": [_p, _p, _i64, _i64, _p]})
 
 #: launches per wrapper since the last :func:`reset_launches`
 LAUNCHES = {"tree_combine": 0, "q8_pack_rows": 0, "q8_combine_rows": 0,
             "q8_unpack_rows": 0}
 
-#: what the last build reported: ``{"path", "seconds", "log"}`` (``log``
-#: holds ptxas' register and shared-memory lines)
-BUILD_INFO: dict = {}
-
-_LIB = None
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_ROWS = 65535          # the row kernels put rows on gridDim.y
 
@@ -49,86 +42,10 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def build_dir() -> Path:
-    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
-    if env:
-        return Path(env)
-    return Path(__file__).resolve().parents[4] / "build" / "kernels"
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in ([os.path.join(home, "bin", "nvcc")] if home else []) + [
-            shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]:
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME): the tree-combine "
-                       "kernels are built from source at first use")
-
-
-def build() -> Path:
-    """Compile the kernels into a shared library (once per source hash)
-    and return its path."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = build_dir() / f"libtree_combine-{digest}.so"
-    if out.exists():
-        BUILD_INFO.setdefault("path", str(out))
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{res.stdout}"
-                           f"\n{res.stderr}")
-    os.replace(tmp, out)
-    BUILD_INFO.update(path=str(out), seconds=time.perf_counter() - t0,
-                      log=(res.stdout + res.stderr).strip())
-    return out
-
-
-def _lib():
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.tree_combine.argtypes = [i32, p, p, p, i64, i64, p]
-        lib.q8_pack_rows.argtypes = [p, p, p, i64, i64, p]
-        lib.q8_combine_rows.argtypes = [p, p, p, i64, i64, p]
-        lib.q8_unpack_rows.argtypes = [p, p, i64, i64, p]
-        for fn in (lib.tree_combine, lib.q8_pack_rows, lib.q8_combine_rows,
-                   lib.q8_unpack_rows):
-            fn.restype = i32
-        _LIB = lib
-    return _LIB
-
-
-def _check(name, *tensors):
-    for t in tensors:
-        if t.device.type != "cuda":
-            raise ValueError(f"{name}: CUDA tensors only, got {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: tensors must be contiguous")
-        if t.device != tensors[0].device:
-            raise ValueError(f"{name}: tensors on different devices")
-
-
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _done(name, err):
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-    LAUNCHES[name] += 1
-
-
 def tree_combine(recv, partial):
     """``partial (L,) + recv (C, L).sum(0)``, f32 accumulation, output in
     ``partial``'s dtype (f32, bf16 or f16; ``recv`` of the same dtype)."""
-    _check("tree_combine", recv, partial)
+    check_cuda("tree_combine", recv, partial)
     if recv.dim() != 2 or partial.dim() != 1 \
             or recv.shape[1] != partial.shape[0]:
         raise ValueError(f"tree_combine: recv (C, L) and partial (L,), got "
@@ -138,11 +55,10 @@ def tree_combine(recv, partial):
                          f"{recv.dtype} and {partial.dtype}")
     out = torch.empty_like(partial)
     with torch.cuda.device(partial.device):
-        err = _lib().tree_combine(_DTYPE_CODE[partial.dtype], recv.data_ptr(),
-                                  partial.data_ptr(), out.data_ptr(),
-                                  recv.shape[0], partial.shape[0],
-                                  _stream(partial))
-    _done("tree_combine", err)
+        err = LIB.load().tree_combine(
+            _DTYPE_CODE[partial.dtype], recv.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), recv.shape[0], partial.shape[0], stream(partial))
+    launched(LAUNCHES, "tree_combine", err)
     return out
 
 
@@ -157,21 +73,21 @@ def _rows_check(name, x, dtype):
 
 def q8_pack_rows(x):
     """``(R, m)`` f32 -> ``(R, m + 4)`` int8 wires, one scale per row."""
-    _check("q8_pack_rows", x)
+    check_cuda("q8_pack_rows", x)
     _rows_check("q8_pack_rows", x, torch.float32)
     r, m = x.shape
     wires = torch.empty((r, m + 4), dtype=torch.int8, device=x.device)
     amax = torch.empty((r,), dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
-        err = _lib().q8_pack_rows(x.data_ptr(), wires.data_ptr(),
-                                  amax.data_ptr(), r, m, _stream(x))
-    _done("q8_pack_rows", err)
+        err = LIB.load().q8_pack_rows(x.data_ptr(), wires.data_ptr(),
+                                      amax.data_ptr(), r, m, stream(x))
+    launched(LAUNCHES, "q8_pack_rows", err)
     return wires
 
 
 def q8_combine_rows(wires, partial):
     """``partial (R, m) + dequantize(wires (R, m + 4))``, f32."""
-    _check("q8_combine_rows", wires, partial)
+    check_cuda("q8_combine_rows", wires, partial)
     _rows_check("q8_combine_rows", wires, torch.int8)
     _rows_check("q8_combine_rows", partial, torch.float32)
     r, m = partial.shape
@@ -180,22 +96,23 @@ def q8_combine_rows(wires, partial):
                          f"not match partial {(r, m)}")
     out = torch.empty_like(partial)
     with torch.cuda.device(partial.device):
-        err = _lib().q8_combine_rows(wires.data_ptr(), partial.data_ptr(),
-                                     out.data_ptr(), r, m, _stream(partial))
-    _done("q8_combine_rows", err)
+        err = LIB.load().q8_combine_rows(
+            wires.data_ptr(), partial.data_ptr(), out.data_ptr(), r, m,
+            stream(partial))
+    launched(LAUNCHES, "q8_combine_rows", err)
     return out
 
 
 def q8_unpack_rows(wires):
     """``(R, m + 4)`` int8 wires -> ``(R, m)`` f32."""
-    _check("q8_unpack_rows", wires)
+    check_cuda("q8_unpack_rows", wires)
     _rows_check("q8_unpack_rows", wires, torch.int8)
     r, m4 = wires.shape
     if m4 < 4:
         raise ValueError("q8_unpack_rows: a wire holds at least its tail")
     out = torch.empty((r, m4 - 4), dtype=torch.float32, device=wires.device)
     with torch.cuda.device(wires.device):
-        err = _lib().q8_unpack_rows(wires.data_ptr(), out.data_ptr(), r,
-                                    m4 - 4, _stream(wires))
-    _done("q8_unpack_rows", err)
+        err = LIB.load().q8_unpack_rows(wires.data_ptr(), out.data_ptr(),
+                                        r, m4 - 4, stream(wires))
+    launched(LAUNCHES, "q8_unpack_rows", err)
     return out

@@ -1,1 +1,2 @@
-"""The ``lm`` model family (dense, no MoE)."""
+"""The ``lm`` model family (dense, no MoE) and the ``rglru`` family
+(recurrentgemma)."""

@@ -6,14 +6,18 @@ for key (``repro/models/layers.py``).  The casts follow the reference
 exactly: parameters stay f32 and are cast to the activation dtype where
 they are used; norms and the softmax run in f32.  Attention is plain
 matmuls, an f32 softmax and the ``-1e30`` mask, as the reference computes
-it outside any kernel.
+it outside any kernel, except a prefill's attention over fresh keys,
+which runs through the flash attention kernel.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
+
+from ..kernels.flash_attention.ops import attention as flash_attention
 
 # f32 matrix products run in full f32 on the card, as in the reference
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -88,36 +92,78 @@ def init_attention(gen, cfg: AttnCfg, device="cpu"):
     }
 
 
-def attention(p, cfg: AttnCfg, x, positions):
-    """Causal self-attention.  x: (B, S, d); positions: (S,) int."""
+def attention(p, cfg: AttnCfg, x, positions, *, kv_cache=None,
+              cache_len=None, cache_write_idx=None, cache_positions=None,
+              fresh=False):
+    """Causal self-attention; returns ``(out, new_cache)``.
+
+    x: (B, S, d); positions: (S,) int.  Without a cache, ``new_cache`` is
+    the fresh ``(k, v)``.  kv_cache: ``(k_cache, v_cache)`` of shape
+    (B, S_max, KV, hd) holding ``cache_len`` valid entries; the new keys
+    and values are written at ``cache_len`` (a ring buffer: at slot
+    ``cache_write_idx``, with ``cache_positions`` the absolute position of
+    every slot, sentinel 1e9) in place, and the cache is returned.
+
+    ``fresh=True`` is a prefill: the positions are 0..S-1 and the queries
+    see only the S fresh keys (no cache, or an empty one), so attention
+    runs through the flash attention kernel.  Otherwise (training, decode)
+    it is the plain :func:`sdpa`, as the reference computes it outside
+    any kernel.
+    """
     dt = x.dtype
+    s = x.shape[1]
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    out = sdpa(q, k, v, positions, positions, cfg)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
+    kv_pos, valid_len, new_cache = positions, None, (k, v)
+    if kv_cache is not None:
+        kc, vc = kv_cache
+        wi = cache_len if cache_write_idx is None else cache_write_idx
+        kc[:, wi:wi + s] = k.to(kc.dtype)
+        vc[:, wi:wi + s] = v.to(vc.dtype)
+        new_cache = (kc, vc)
+        # the reference attends over the cache: keys and values rounded
+        # through the cache's dtype
+        if fresh:
+            k, v = k.to(kc.dtype).to(dt), v.to(vc.dtype).to(dt)
+        else:
+            k, v = kc.to(dt), vc.to(dt)
+            if cache_positions is not None:
+                kv_pos = cache_positions
+            else:
+                kv_pos = torch.arange(kc.shape[1], device=x.device)
+                valid_len = cache_len + s
+    if fresh:
+        out = flash_attention(q, k, v, causal=True, window=cfg.window)
+    else:
+        out = sdpa(q, k, v, positions, kv_pos, cfg, valid_len=valid_len)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt)), new_cache
 
 
-def _mask(qp, kp, cfg: AttnCfg, mask_mode):
+def _mask(qp, kp, cfg: AttnCfg, mask_mode, valid_len=None):
     """(S, T) bool mask from positions (the reference's ``_block_mask``)."""
     m = (kp[None, :] < 10 ** 9).expand(qp.shape[0], kp.shape[0])
     if mask_mode == "causal":
         m = m & (kp[None, :] <= qp[:, None])
         if cfg.window is not None:
             m = m & (kp[None, :] > qp[:, None] - cfg.window)
+    if valid_len is not None:
+        m = m & (kp[None, :] < valid_len)
     return m
 
 
-def sdpa(q, k, v, q_pos, kv_pos, cfg: AttnCfg, mask_mode="causal"):
+def sdpa(q, k, v, q_pos, kv_pos, cfg: AttnCfg, mask_mode="causal",
+         valid_len=None):
     """Softmax attention over all keys at once: the query-key product in
     the activation dtype, scaled and masked to ``-1e30`` in f32, an f32
     softmax whose weights are cast to the activation dtype for the value
     product, as the reference's blockwise ``sdpa`` does within one block.
 
     q: (B,S,H,D); k,v: (B,T,KV,D) -> (B,S,H,D).  Heads are grouped as the
-    reference groups them: head ``h = kv * g + j``."""
+    reference groups them: head ``h = kv * g + j``.  Keys at or past
+    ``valid_len`` are masked."""
     b, s, h, d = q.shape
     kv = k.shape[2]
     g = h // kv
@@ -126,7 +172,7 @@ def sdpa(q, k, v, q_pos, kv_pos, cfg: AttnCfg, mask_mode="causal"):
     # activation-dtype product to f32 before the scale
     logits = torch.einsum("bqkgd,btkd->bkgqt", qg, k).float() \
         * np.float32(1.0 / np.sqrt(d))
-    mask = _mask(q_pos, kv_pos, cfg, mask_mode)
+    mask = _mask(q_pos, kv_pos, cfg, mask_mode, valid_len)
     logits = torch.where(mask, logits, -1e30)
     m = logits.amax(-1).clamp_min(-1e30)
     p_ = torch.exp(logits - m[..., None])
@@ -147,8 +193,9 @@ def init_glu_mlp(gen, d, f, device="cpu"):
 
 
 def glu_mlp(p, x, kind="swiglu"):
+    # jax.nn.gelu defaults to the tanh approximation
     act = torch.nn.functional.silu if kind == "swiglu" \
-        else torch.nn.functional.gelu
+        else functools.partial(torch.nn.functional.gelu, approximate="tanh")
     dt = x.dtype
     g = torch.einsum("bsd,df->bsf", x, p["wi_gate"].to(dt))
     u = torch.einsum("bsd,df->bsf", x, p["wi_up"].to(dt))

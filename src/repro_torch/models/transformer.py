@@ -4,7 +4,9 @@ blocks, tied embeddings.
 
 Layer parameters are stacked along a leading ``layers`` dimension, as the
 reference stacks them for its ``scan``; the forward unbinds them once (one
-gradient buffer per stacked leaf in the backward) and loops.
+gradient buffer per stacked leaf in the backward) and loops.  Serving
+(``prefill`` / ``decode_step``) keeps the reference's KV cache; the port
+writes it in place.
 """
 from __future__ import annotations
 
@@ -65,21 +67,35 @@ def _unbind(tree):
     return tree.unbind(0)
 
 
-def _block(cfg, lp, x, positions):
-    h = L.attention(lp["attn"], attn_cfg(cfg), L.rmsnorm(lp["ln1"], x),
-                    positions)
+def _block(cfg, lp, x, positions, kv_cache=None, cache_len=None,
+           fresh=False):
+    h, _ = L.attention(lp["attn"], attn_cfg(cfg), L.rmsnorm(lp["ln1"], x),
+                       positions, kv_cache=kv_cache, cache_len=cache_len,
+                       fresh=fresh)
     x = x + h
     h2 = L.rmsnorm(lp["ln2"], x)
     return x + L.glu_mlp(lp["mlp"], h2, cfg.mlp_kind)
 
 
-def forward(cfg, params, tokens, *, return_hidden=False):
+def forward(cfg, params, tokens, *, cache=None, cache_len=None,
+            last_only=False, return_hidden=False):
     """tokens: (B, S) int.  Returns logits (B, S, vocab_padded), or the
-    final-normed hidden states with ``return_hidden``."""
+    final-normed hidden states with ``return_hidden``; ``last_only`` keeps
+    the last position only.
+
+    cache: ``(k, v)``, each (L, B, S_max, KV, hd), holding ``cache_len``
+    valid positions; the new keys and values are written into it in
+    place.  At ``cache_len`` 0 (a prefill) attention runs over the fresh
+    keys through the flash attention kernel."""
     x = L.embed(params["embed"], tokens, dtype=cfg.act_dtype)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
-    for lp in _unbind(params["layers"]):
-        x = _block(cfg, lp, x, positions)
+    base = 0 if cache_len is None else cache_len
+    positions = base + torch.arange(tokens.shape[1], device=tokens.device)
+    fresh = cache is not None and cache_len == 0
+    for i, lp in enumerate(_unbind(params["layers"])):
+        kv = None if cache is None else (cache[0][i], cache[1][i])
+        x = _block(cfg, lp, x, positions, kv, cache_len, fresh)
+    if last_only:
+        x = x[:, -1:]
     x = L.rmsnorm(params["final_norm"], x)
     if return_hidden:
         return x
@@ -93,3 +109,31 @@ def loss_fn(cfg, params, batch):
     loss = L.chunked_unembed_xent(params["embed"], hidden, tokens[:, 1:],
                                   cfg.vocab)
     return loss, {"xent": loss}
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg, batch, max_len, dtype=torch.bfloat16, device="cpu"):
+    """Zeroed ``(k, v)`` caches of shape (L, B, max_len, KV, hd), in bf16
+    by default as in the reference."""
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.head_dim_)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
+def prefill(cfg, params, tokens, max_len):
+    """Run the prompt while writing a fresh ``max_len`` cache; returns the
+    last position's logits (B, vocab_padded) and the cache."""
+    cache = init_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
+    logits = forward(cfg, params, tokens, cache=cache, cache_len=0,
+                     last_only=True)
+    return logits[:, -1], cache
+
+
+def decode_step(cfg, params, cache, tokens, cache_len):
+    """One-token decode: tokens (B, 1) at position ``cache_len``.  The
+    cache is updated in place and returned."""
+    logits = forward(cfg, params, tokens, cache=cache, cache_len=cache_len)
+    return logits[:, -1], cache

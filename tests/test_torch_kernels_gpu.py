@@ -1,13 +1,19 @@
-"""The CUDA tree-combine and int8 wire-codec kernels against their plain
-PyTorch versions, on the card (marked ``gpu``; they skip without a CUDA
-device).  This file imports neither JAX nor the reference, so it runs on a
-machine that has only PyTorch:
+"""The CUDA kernels (tree-combine and the int8 wire codec, flash attention,
+the RG-LRU scan) against their plain PyTorch versions, on the card
+(marked ``gpu``; they skip without a CUDA device).  This file imports
+neither JAX nor the reference, so it runs on a machine that has only
+PyTorch:
 
     python -m pytest -q tests/test_torch_kernels_gpu.py
 """
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention import kernel as FK
+from repro_torch.kernels.flash_attention import ops as fops
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.rglru import kernel as RK
+from repro_torch.kernels.rglru.ref import rglru_ref
 from repro_torch.kernels.tree_combine import kernel as K
 from repro_torch.kernels.tree_combine import ref as tref
 
@@ -51,3 +57,67 @@ def test_q8_kernels_on_card(rows, m):
     assert float((K.q8_unpack_rows(w)
                   - tref.q8_unpack_rows_ref(w)).abs().max()) <= 1e-6
     assert bool((K.q8_unpack_rows(torch.zeros_like(w)) == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,kv,d,causal,window", [
+    (2, 128, 8, 2, 64, True, None),       # GQA
+    (1, 100, 4, 4, 32, True, None),       # ragged S, MHA
+    (2, 256, 8, 1, 128, True, 48),        # MQA, window
+    (1, 128, 2, 2, 64, False, None),      # full attention
+    (1, 77, 10, 1, 256, True, 40),        # recurrentgemma's layout, ragged
+    (1, 230, 10, 1, 256, True, 70),       # ... window over several tiles
+    (2, 300, 9, 3, 64, True, None),       # smollm's layout, ragged
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_on_card(b, s, h, kv, d, causal, window,
+                                        dtype):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(s + h)
+    q = torch.randn((b, s, h, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, s, kv, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, s, kv, d), generator=g, device=dev).to(dtype)
+    FK.reset_launches()
+    out = fops.attention(q, k, v, causal=causal, window=window)
+    assert FK.LAUNCHES["flash_attention"] == 1
+    ref = attention_ref(q, k, v, causal=causal, window=window)
+    # the reference's kernel-test tolerances: f32 sums in another order;
+    # bf16 one rounding of the f32 output
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert out.dtype == dtype
+    assert float((out.float() - ref.float()).abs().max()) < tol
+
+
+@pytest.mark.gpu
+def test_flash_attention_refuses_unaligned_inputs_on_card():
+    """The kernel loads 4 elements at once: a contiguous view that starts
+    off a 16-byte boundary is refused, not read misaligned."""
+    dev = _cuda()
+    buf = torch.zeros((1 + 40 * 4 * 64,), device=dev)
+    q = buf[1:].view(1, 40, 4, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        fops.attention(q, q, q)
+
+
+@pytest.mark.gpu
+def test_flash_attention_refuses_gradients_on_card():
+    dev = _cuda()
+    q = torch.randn((1, 8, 2, 32), device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward only"):
+        fops.attention(q, q.detach(), q.detach())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,w", [(2, 100, 48), (1, 64, 128), (3, 17, 8),
+                                   (8, 333, 2560)])
+@pytest.mark.parametrize("with_h0", [True, False])
+def test_rglru_scan_kernel_on_card(b, t, w, with_h0):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(t + w)
+    a = torch.sigmoid(torch.randn((b, t, w), generator=g, device=dev))
+    bx = torch.randn((b, t, w), generator=g, device=dev)
+    h0 = torch.randn((b, w), generator=g, device=dev) if with_h0 else None
+    h, h_last = RK.rglru_scan(a, bx, h0)
+    rh, rl = rglru_ref(a, bx, h0)
+    # the kernel rounds the multiply and the add as the plain loop does
+    assert torch.equal(h, rh) and torch.equal(h_last, rl)
