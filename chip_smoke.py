@@ -3,20 +3,21 @@
 
     python3 chip_smoke.py
 
-Builds the port's three kernel libraries (tree-combine / int8 wire codec,
-flash attention, RG-LRU scan) from the sources in this checkout, one
-``nvcc`` per source, all at once; holds each kernel against its plain
+Builds the port's four kernel libraries (tree-combine / int8 wire codec,
+flash attention, RG-LRU scan, WKV6) from the sources in this checkout,
+one ``nvcc`` per source, all at once; holds each kernel against its plain
 PyTorch version at ragged small shapes and at every shape its path gives
 it, and times it; sums a full-size stacked gradient with the EDST engine
 (4x4 torus f32 and int8, ring 16 int8); trains the full-width smollm-135m
 data-parallel over the 16 vertices of the 4x4 torus (edst, edst + int8
 wire, psum_dp) and of the ring 16 (edst + int8 wire, the fabric whose
-reduce hops run q8_combine); and serves the full-width recurrentgemma-2b
-(batch 8, prompt 4096, 32 tokens, bf16) and smollm-135m (batch 8, prompt
-1024, 32 tokens) through the serving entry point, each followed by an f32
-check that a decode step's logits equal those of a prefill of the same
-tokens.  Every failed check raises, so the exit code is non-zero and no
-result line is printed.  The last line is
+reduce hops run q8_combine); and serves three full-width models through
+the serving entry point, bf16, 32 greedy tokens each: recurrentgemma-2b
+(batch 8, prompt 4096), smollm-135m (batch 8, prompt 1024) and rwkv6-7b
+(batch 8, prompt 4096), each followed by an f32 check that a decode
+step's logits equal those of a prefill of the same tokens.  Every failed
+check raises, so the exit code is non-zero and no result line is
+printed.  The last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -89,7 +90,9 @@ def libraries():
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.rglru import kernel as RK
     from repro_torch.kernels.tree_combine import kernel as K
-    return {"tree_combine": K, "flash_attention": FK, "rglru": RK}
+    from repro_torch.kernels.wkv6 import kernel as WK
+    return {"tree_combine": K, "flash_attention": FK, "rglru": RK,
+            "wkv6": WK}
 
 
 def phase_build():
@@ -228,11 +231,25 @@ FLASH_SMALL = ((2, 128, 8, 2, 64, True, None), (1, 100, 4, 4, 32, True, None),
 FLASH_PATH = {"recurrentgemma-2b": (8, 4096, 10, 1, 256, 2048),
               "smollm-135m": (8, 1024, 9, 3, 64, None)}
 # (batch, prompt, generated tokens) served per model
-SERVE = {"recurrentgemma-2b": (8, 4096, 32), "smollm-135m": (8, 1024, 32)}
+SERVE = {"recurrentgemma-2b": (8, 4096, 32), "smollm-135m": (8, 1024, 32),
+         "rwkv6-7b": (8, 4096, 32)}
 RG_SCAN = (8, 4096, 2560)      # one RG-LRU layer's scan in that prefill
 PATH_LAUNCHES = {"recurrentgemma-2b": {"flash_attention": 8,
-                                       "rglru_scan": 18},
-                 "smollm-135m": {"flash_attention": 30, "rglru_scan": 0}}
+                                       "rglru_scan": 18, "wkv6": 0},
+                 "smollm-135m": {"flash_attention": 30, "rglru_scan": 0,
+                                 "wkv6": 0},
+                 "rwkv6-7b": {"flash_attention": 0, "rglru_scan": 0,
+                              "wkv6": 32}}
+# (b, t, h, n, chunk): the reference kernel test's three shapes, then
+# ragged ones at N 64, 32 and 16 (a ragged last chunk, T < chunk)
+WKV_SMALL = ((2, 100, 3, 16, 32), (1, 64, 2, 64, 64), (2, 33, 4, 8, 16),
+             (3, 130, 5, 64, 64), (2, 20, 3, 32, 64), (2, 77, 4, 16, 64))
+# logw = -exp(a x + c), x ~ N(0, 1): the model's decays (w0 = -6), the
+# reference kernel test's, and a strong decay that passes the clamp
+WKV_DECAYS = {"model": (0.3, -6.0), "reference test": (0.5, -4.0),
+              "strong": (0.5, 2.0)}
+WKV_PATH = (8, 4096, 64, 64)   # one rwkv6-7b prefill layer: B, T, H, N
+WKV_CHUNK = 64
 
 
 def live_pairs(s, window):
@@ -349,6 +366,92 @@ def phase_rglru(dev):
     return row
 
 
+def wkv_within(out, ref, dtype):
+    """f32: sums in another order, 2e-4 of the largest output (the
+    reference kernel test's 2e-4, scaled to the output's size); bf16 one
+    bf16 rounding of each output on top.  Returns (ok, max |diff|)."""
+    import torch
+    atol = 2e-4 * max(1.0, float(ref.float().abs().max()))
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    diff = (out.float() - ref.float()).abs()
+    ok = bool((diff <= atol + rtol * ref.float().abs()).all())
+    return ok, float(diff.max())
+
+
+def phase_wkv6(dev):
+    """WKV6 against its plain version at ragged shapes (f32 and bf16, with
+    and without an initial state, three decay regimes) and at one rwkv6-7b
+    prefill layer's shape; returns its row."""
+    import torch
+    from repro_torch.kernels.wkv6 import kernel as WK
+    from repro_torch.kernels.wkv6.ref import CLAMP, wkv6_ref
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def inputs(b, t, h, n, dt, decay):
+        r, k, v = (torch.randn((b, t, h, n), generator=g, device=dev).to(dt)
+                   for _ in range(3))
+        a, c = decay
+        logw = -torch.exp(a * torch.randn((b, t, h, n), generator=g,
+                                          device=dev) + c)
+        u = 0.5 * torch.randn((h, n), generator=g, device=dev)
+        s0 = torch.randn((b, h, n, n), generator=g, device=dev)
+        return r, k, v, logw, u, s0
+
+    worst = 0.0
+    for b, t, h, n, chunk in WKV_SMALL:
+        for dt in (torch.float32, torch.bfloat16):
+            for regime, decay in WKV_DECAYS.items():
+                r, k, v, logw, u, s0 = inputs(b, t, h, n, dt, decay)
+                c = min(chunk, t)
+                reach = float(-logw[:, :c].cumsum(1).min())
+                assert (reach > CLAMP) == (regime == "strong"), (regime,
+                                                                  reach)
+                for init in (None, s0):
+                    out, s = WK.wkv6(r, k, v, logw, u, init, chunk=chunk)
+                    ro, rs = wkv6_ref(r, k, v, logw, u, init, chunk=chunk)
+                    ok_o, e_o = wkv_within(out, ro, dt)
+                    ok_s, e_s = wkv_within(s, rs, torch.float32)
+                    finite = bool(torch.isfinite(out.float()).all()
+                                  and torch.isfinite(s).all())
+                    assert ok_o and ok_s and finite, (
+                        "wkv6", b, t, h, n, chunk, dt, regime,
+                        init is not None, e_o, e_s)
+                    worst = max(worst, e_o / max(1.0, float(
+                        ro.float().abs().max())))
+    torch.cuda.synchronize()
+    log(f"wkv6: ragged shapes match the plain version (largest error "
+        f"{worst:.3g} of the largest output)")
+
+    b, t, h, n = WKV_PATH
+    r, k, v, logw, u, _ = inputs(b, t, h, n, torch.bfloat16,
+                                 WKV_DECAYS["model"])
+    out, s = WK.wkv6(r, k, v, logw, u, chunk=WKV_CHUNK)
+    ro, rs = wkv6_ref(r, k, v, logw, u, chunk=WKV_CHUNK)
+    ok_o, e_o = wkv_within(out, ro, torch.bfloat16)
+    ok_s, e_s = wkv_within(s, rs, torch.float32)
+    log(f"wkv6 at rwkv6-7b's prefill {WKV_PATH} bf16: max|out| "
+        f"{float(ro.float().abs().max())!r}, max|state| "
+        f"{float(rs.abs().max())!r}, max|d out| {e_o!r}, max|d state| "
+        f"{e_s!r}")
+    assert ok_o and ok_s, ("wkv6", e_o, e_s)
+    del out, s, ro, rs
+    c, nc = WKV_CHUNK, -(-t // WKV_CHUNK)
+    # r, k, v read and out written in bf16, logw read in f32, the f32
+    # state written
+    nbytes = 4 * r.numel() * r.element_size() + logw.numel() * 4 \
+        + b * h * n * n * 4
+    ops = b * h * nc * 2 * (c * (c - 1) * n + 2 * c * n * n)
+    row = timed_row("wkv6", "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
+                    "src/repro/kernels/wkv6/kernel.py:75", e_o,
+                    lambda: WK.wkv6(r, k, v, logw, u, chunk=WKV_CHUNK),
+                    lambda: wkv6_ref(r, k, v, logw, u, chunk=WKV_CHUNK),
+                    None, nbytes, ops)
+    row["shape"] = "rwkv6-7b prefill"
+    del r, k, v, logw, u
+    torch.cuda.empty_cache()
+    return row
+
+
 def reset_all():
     for m in libraries().values():
         m.reset_launches()
@@ -366,10 +469,11 @@ def f32_decode_check(dev, arch, prompt):
     hold the decode's logits (plain attention over the cache, one plain
     recurrence step) against the last logits of a prefill of the same
     ``prompt + 1`` tokens (the kernels).  The two sum in different orders
-    (kernel tiles against a one-block softmax, a sequential scan against
-    one step, other matmul shapes).  On an H100 that reorder gave 1.3e-5
-    (recurrentgemma-2b) and 2.5e-6 (smollm-135m) of the largest logit, so
-    the limit is 1e-4 of it: 8 and 40 times those readings."""
+    (kernel tiles against a one-block softmax, a sequential scan or the
+    chunked WKV against one step, other matmul shapes).  On an H100 that
+    reorder gave 1.4e-5 (recurrentgemma-2b), 2.5e-6 (smollm-135m) and
+    2.4e-5 (rwkv6-7b) of the largest logit, so the limit is 1e-4 of it:
+    7, 40 and 4 times those readings."""
     import dataclasses
 
     import torch
@@ -565,7 +669,8 @@ def main():
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     phase_build()
-    rows = phase_kernels(dev) + [phase_flash(dev), phase_rglru(dev)]
+    rows = phase_kernels(dev) + [phase_flash(dev), phase_rglru(dev),
+                                 phase_wkv6(dev)]
 
     phase_allreduce(dev)
     # the main paths, each run counted on its own

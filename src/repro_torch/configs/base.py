@@ -79,6 +79,8 @@ class ArchConfig:
         """Approximate parameter count N (for MODEL_FLOPS = 6 N D)."""
         d, hd = self.d_model, self.head_dim_
         attn = d * hd * (self.n_heads * 2 + self.n_kv * 2)
+        if self.family == "rwkv6":
+            attn = 5 * d * d + d * 32 * 6  # r,k,v,g,o + lora decays (approx)
         mult = 3 if self.mlp_kind in ("swiglu", "geglu") else 2
         ffn = mult * d * self.d_ff
         return self.n_layers * (attn + ffn) + self.vocab * d
@@ -99,6 +101,8 @@ class ArchConfig:
         )
         if self.family == "rglru":
             kw.update(lru_width=128, window=32, head_dim=32)
+        if self.family == "rwkv6":
+            kw.update(head_size=32)
         if self.window is not None and self.family != "rglru":
             kw.update(window=32)
         return dataclasses.replace(self, **kw)

@@ -1,12 +1,16 @@
 """Batched serving entry point of the port: prefill a batch of prompts,
-then decode greedily with the KV (and, for ``rglru``, recurrent) cache.
+then decode greedily with the KV cache (``lm``), the KV and recurrent
+caches (``rglru``) or the WKV state (``rwkv6``).
 
 Runs on the CUDA device unless ``--device cpu`` is given; with no CUDA
 device and no ``--device cpu`` it raises rather than carry on on the CPU.
-A prefill's attention runs through the flash attention kernel and every
-RG-LRU scan through the RG-LRU kernel; decode steps are plain PyTorch.
+A prefill's attention runs through the flash attention kernel, every
+RG-LRU scan through the RG-LRU kernel and every WKV recurrence through
+the WKV6 kernel; decode steps are plain PyTorch.
 
     python -m repro_torch.launch.serve --arch recurrentgemma-2b --batch 8 \\
+        --prompt-len 4096 --gen 32
+    python -m repro_torch.launch.serve --arch rwkv6-7b --batch 8 \\
         --prompt-len 4096 --gen 32
     python -m repro_torch.launch.serve --arch smollm-135m --reduced \\
         --batch 2 --prompt-len 40 --gen 8 --device cpu
@@ -22,6 +26,7 @@ import torch
 from repro_torch import configs
 from repro_torch.launch.train import resolve_device
 from repro_torch.models import rglru as G
+from repro_torch.models import rwkv6 as W
 from repro_torch.models import transformer as T
 
 
@@ -59,9 +64,13 @@ def model_fns(cfg):
         return (G.init_rglru_model,
                 lambda p, tok, n: G.prefill(cfg, p, tok),
                 lambda p, c, tok, n: G.decode_step(cfg, p, c, tok, n))
+    if cfg.family == "rwkv6":       # the state does not grow: no lengths
+        return (W.init_rwkv6_model,
+                lambda p, tok, n: W.prefill(cfg, p, tok),
+                lambda p, c, tok, n: W.decode_step(cfg, p, c, tok))
     raise NotImplementedError(
         f"{cfg.name}: the {cfg.family!r} family is not ported yet (ROADMAP "
-        "Queue 1: rwkv6 with the wkv6 kernel, then MoE)")
+        "Queue 1: moe, encdec and vlm)")
 
 
 @torch.inference_mode()

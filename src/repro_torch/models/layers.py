@@ -1,5 +1,6 @@
-"""Shared layers of the ``lm`` family: norms, rotary embeddings, GQA
-attention, the gated MLP, embeddings and the chunked cross-entropy.
+"""Shared layers of the port's models: norms (RMS, and the layer norm of
+``rwkv6``), rotary embeddings, GQA attention, the gated MLP, embeddings
+and the chunked cross-entropy.
 
 Parameters are plain dicts of tensors that mirror the reference's tree key
 for key (``repro/models/layers.py``).  The casts follow the reference
@@ -35,6 +36,10 @@ def ninit(gen, shape, scale=None, device="cpu"):
                        dtype=torch.float32) * float(scale)
 
 
+def zinit(shape, device="cpu"):
+    return torch.zeros(shape, dtype=torch.float32, device=device)
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
@@ -48,6 +53,20 @@ def rmsnorm(p, x, eps=1e-6):
     x = x.float()
     x = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
     return (x * p["scale"]).to(dt)
+
+
+def init_layernorm(d, device="cpu"):
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
+            "bias": zinit((d,), device)}
+
+
+def layernorm(p, x, eps=1e-6):
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    return ((x - mu) * torch.rsqrt(var + eps) * p["scale"]
+            + p["bias"]).to(dt)
 
 
 # ---------------------------------------------------------------------------

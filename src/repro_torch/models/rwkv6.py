@@ -1,0 +1,253 @@
+"""RWKV-6 "Finch" (``rwkv6`` family, the reference's
+``repro/models/rwkv6.py``), for serving [arXiv:2404.05892].
+
+Time-mix: token-shift ddlerp (5 streams r, k, v, w, g with a shared
+low-rank data-dependent adjustment), per-channel data-dependent decay
+``w_t = exp(-exp(w0 + LoRA_w(x)))`` and bonus ``u``, and the WKV state
+recurrence
+
+    o_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T);   S_t = diag(w_t) S_{t-1} + k_t v_t^T
+
+which a prefill runs through the WKV6 kernel (the chunked algorithm) and
+decode as one plain step (:func:`wkv6_step`).  Channel-mix: squared-relu
+MLP with a receptance gate.
+
+Layer parameters are stacked along a leading ``layers`` dimension, as the
+reference stacks them for its ``scan``; the forward unbinds them once and
+loops.  Decode state, keyed and shaped as the reference's: per layer the
+WKV state (f32), and the last token of each mix's normed input.  Decode
+updates the caches in place.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.wkv6.ops import wkv
+from . import layers as L
+from .transformer import _unbind
+
+LORA_R = 32      # low-rank width of the ddlerp / decay adapters
+N_STREAMS = 5    # r, k, v, w, g
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_layer(cfg, gen, device="cpu"):
+    d = cfg.d_model
+    h = d // cfg.head_size
+
+    def n(shape, scale=None):
+        return L.ninit(gen, shape, scale=scale, device=device)
+
+    return {
+        "ln1": L.init_layernorm(d, device),
+        "ln2": L.init_layernorm(d, device),
+        # ddlerp token-shift mixing
+        "mu_x": L.zinit((d,), device), "mu": L.zinit((N_STREAMS, d), device),
+        "tm_w1": n((d, N_STREAMS * LORA_R), 0.01),
+        "tm_w2": n((N_STREAMS, LORA_R, d), 0.01),
+        # projections
+        "wr": n((d, d)), "wk": n((d, d)), "wv": n((d, d)), "wg": n((d, d)),
+        "wo": n((d, d)),
+        # decay: w0 + lora
+        "w0": torch.full((d,), -6.0, dtype=torch.float32, device=device),
+        "dw1": n((d, 64), 0.01),
+        "dw2": n((64, d), 0.01),
+        "u": n((h, cfg.head_size), 0.5),
+        "ln_x": torch.ones((d,), dtype=torch.float32, device=device),
+        # channel mix
+        "cm_mu_k": L.zinit((d,), device), "cm_mu_r": L.zinit((d,), device),
+        "cm_wk": n((d, cfg.d_ff)),
+        "cm_wv": n((cfg.d_ff, d)),
+        "cm_wr": n((d, d)),
+    }
+
+
+def _stack_into(dst, src, i):
+    for key, val in src.items():
+        if isinstance(val, dict):
+            _stack_into(dst[key], val, i)
+        else:
+            dst[key][i] = val
+
+
+def _empty_stack(tree, n):
+    if isinstance(tree, dict):
+        return {k: _empty_stack(v, n) for k, v in tree.items()}
+    return tree.new_empty((n,) + tuple(tree.shape))
+
+
+def init_rwkv6_model(cfg, gen: torch.Generator, device="cpu"):
+    """Parameters drawn from ``gen`` (a generator on ``device``).  The
+    numbers differ from the reference's ``jax.random`` ones; the tree, the
+    shapes and the scales are the same.  Layers are drawn one at a time
+    into the stacked tensors, so the peak is the model plus one layer."""
+    embed = L.init_embedding(gen, cfg.vocab_padded, cfg.d_model, device)
+    first = init_layer(cfg, gen, device)
+    layers = _empty_stack(first, cfg.n_layers)
+    _stack_into(layers, first, 0)
+    del first
+    for i in range(1, cfg.n_layers):
+        _stack_into(layers, init_layer(cfg, gen, device), i)
+    return {"embed": embed, "layers": layers,
+            "final_norm": L.init_layernorm(cfg.d_model, device)}
+
+
+# ---------------------------------------------------------------------------
+# WKV6 one-token step (decode); the chunked prefill is kernels/wkv6
+# ---------------------------------------------------------------------------
+
+def wkv6_step(r, k, v, logw, u, s):
+    """Single-token exact recurrence.  r, k, v, logw: (B, H, N); s:
+    (B, H, N, N) f32.  Returns ``(o (B, H, N) in r's dtype, new state)``."""
+    r32, k32, v32 = (x.float() for x in (r, k, v))
+    kv = torch.einsum("bhn,bhm->bhnm", k32, v32)
+    o = torch.einsum("bhn,bhnm->bhm", r32, s + u.float()[..., None] * kv)
+    s_new = torch.exp(logw.float())[..., None] * s + kv
+    return o.to(r.dtype), s_new
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+def _shifted(xn, last):
+    """The previous token of every position: ``last`` (B, d) before the
+    first, zeros when there is none."""
+    if xn.shape[1] == 1 and last is not None:
+        return last[:, None, :].to(xn.dtype)
+    prev = F.pad(xn, (0, 0, 1, 0))[:, :-1]
+    if last is not None:
+        prev[:, 0] = last.to(xn.dtype)
+    return prev
+
+
+def _ddlerp(p, x, sx):
+    """5-stream token-shift mixing.  x, sx: (B, S, d) -> 5 mixed."""
+    dt = x.dtype
+    base = x + sx * p["mu_x"].to(dt)
+    lora = torch.einsum("bsd,dr->bsr", torch.tanh(base), p["tm_w1"].to(dt))
+    lora = lora.reshape(*lora.shape[:-1], N_STREAMS, LORA_R)
+    adj = torch.einsum("bszr,zrd->bszd", lora, p["tm_w2"].to(dt))
+    mixed = x[..., None, :] + sx[..., None, :] * (p["mu"].to(dt) + adj)
+    return mixed.unbind(-2)
+
+
+def time_mix(cfg, p, x, *, state=None, last=None):
+    """state: (B, H, N, N) WKV state; last: (B, d) previous token (decode).
+    Returns ``(out, new_state, new_last)``; one token with a state is a
+    plain decode step, anything else runs the WKV6 kernel (from
+    ``state``, or zeros)."""
+    b, s, d = x.shape
+    h, n = cfg.n_heads, cfg.head_size
+    dt = x.dtype
+    xn = L.layernorm(p["ln1"], x)
+    sx = _shifted(xn, last) - xn
+    xr, xk, xv, xw, xg = _ddlerp(p, xn, sx)
+
+    r = torch.einsum("bsd,de->bse", xr, p["wr"].to(dt))
+    k = torch.einsum("bsd,de->bse", xk, p["wk"].to(dt))
+    v = torch.einsum("bsd,de->bse", xv, p["wv"].to(dt))
+    g = torch.einsum("bsd,de->bse", xg, p["wg"].to(dt))
+    dlora = torch.einsum("bsd,dr->bsr", torch.tanh(xw.float()),
+                         p["dw1"].float())
+    logw = -torch.exp(p["w0"] + torch.einsum("bsr,rd->bsd", dlora,
+                                             p["dw2"].float()))
+    rh, kh, vh, wh = (x_.reshape(b, s, h, n) for x_ in (r, k, v, logw))
+
+    if s == 1 and state is not None:
+        o, new_state = wkv6_step(rh[:, 0], kh[:, 0], vh[:, 0], wh[:, 0],
+                                 p["u"], state)
+        o = o[:, None]
+    else:
+        o, new_state = wkv(rh, kh, vh, wh, p["u"], state)
+    # per-head group norm, then the gate
+    o32 = o.float()
+    o32 = o32 * torch.rsqrt((o32 * o32).mean(-1, keepdim=True) + 1e-6)
+    o = (o32.reshape(b, s, d) * p["ln_x"]).to(dt)
+    o = o * F.silu(g)
+    out = torch.einsum("bsd,de->bse", o, p["wo"].to(dt))
+    return out, new_state, xn[:, -1].clone()
+
+
+def channel_mix(p, x, *, last=None):
+    dt = x.dtype
+    xn = L.layernorm(p["ln2"], x)
+    sx = _shifted(xn, last) - xn
+    xk = xn + sx * p["cm_mu_k"].to(dt)
+    xr = xn + sx * p["cm_mu_r"].to(dt)
+    hidden = torch.einsum("bsd,df->bsf", xk, p["cm_wk"].to(dt))
+    hidden = torch.square(F.relu(hidden))
+    out = torch.einsum("bsf,fd->bsd", hidden, p["cm_wv"].to(dt))
+    rgate = torch.sigmoid(torch.einsum("bsd,de->bse", xr, p["cm_wr"].to(dt)))
+    return rgate * out, xn[:, -1].clone()
+
+
+# ---------------------------------------------------------------------------
+# model
+# ---------------------------------------------------------------------------
+
+def forward(cfg, params, tokens, *, caches=None, last_only=False):
+    """Returns ``(logits, caches)``.
+
+    caches: the decode state (see :func:`init_cache`), updated in place.
+    Without caches the call is a prefill: it builds fresh caches (each
+    layer's final WKV state and last normed tokens, in the activation
+    dtype as the reference's scan returns them), and its WKV runs through
+    the kernel."""
+    x = L.embed(params["embed"], tokens, dtype=cfg.act_dtype)
+    decode_mode = caches is not None
+    ys = {"state": [], "last_tm": [], "last_cm": []}
+    for li, lp in enumerate(_unbind(params["layers"])):
+        st = caches["state"][li] if decode_mode else None
+        l1 = caches["last_tm"][li] if decode_mode else None
+        l2 = caches["last_cm"][li] if decode_mode else None
+        o, new_state, new_l1 = time_mix(cfg, lp, x, state=st, last=l1)
+        x = x + o
+        o2, new_l2 = channel_mix(lp, x, last=l2)
+        x = x + o2
+        if decode_mode:
+            caches["state"][li] = new_state
+            caches["last_tm"][li] = new_l1
+            caches["last_cm"][li] = new_l2
+        else:
+            ys["state"].append(new_state)
+            ys["last_tm"].append(new_l1)
+            ys["last_cm"].append(new_l2)
+    if last_only:
+        x = x[:, -1:]
+    x = L.layernorm(params["final_norm"], x)
+    logits = L.unembed(params["embed"], x, cfg.vocab)
+    if decode_mode:
+        return logits, caches
+    return logits, {k: torch.stack(v) for k, v in ys.items()}
+
+
+def init_cache(cfg, batch, max_len=None, device="cpu"):
+    """Zeroed decode state, keyed, shaped and typed as the reference's
+    (``max_len`` is unused: the state does not grow)."""
+    h, n, d = cfg.n_heads, cfg.head_size, cfg.d_model
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    return {"state": zeros(cfg.n_layers, batch, h, n, n),
+            "last_tm": zeros(cfg.n_layers, batch, d),
+            "last_cm": zeros(cfg.n_layers, batch, d)}
+
+
+def prefill(cfg, params, tokens):
+    """Run the prompt; returns the last position's logits (B, vocab_padded)
+    and fresh caches."""
+    logits, caches = forward(cfg, params, tokens, last_only=True)
+    return logits[:, -1], caches
+
+
+def decode_step(cfg, params, caches, tokens):
+    """One-token decode: tokens (B, 1).  The caches are updated in place
+    and returned."""
+    logits, caches = forward(cfg, params, tokens, caches=caches)
+    return logits[:, -1], caches

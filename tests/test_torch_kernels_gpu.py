@@ -1,5 +1,5 @@
 """The CUDA kernels (tree-combine and the int8 wire codec, flash attention,
-the RG-LRU scan) against their plain PyTorch versions, on the card
+the RG-LRU scan, WKV6) against their plain PyTorch versions, on the card
 (marked ``gpu``; they skip without a CUDA device).  This file imports
 neither JAX nor the reference, so it runs on a machine that has only
 PyTorch:
@@ -16,6 +16,9 @@ from repro_torch.kernels.rglru import kernel as RK
 from repro_torch.kernels.rglru.ref import rglru_ref
 from repro_torch.kernels.tree_combine import kernel as K
 from repro_torch.kernels.tree_combine import ref as tref
+from repro_torch.kernels.wkv6 import kernel as WK
+from repro_torch.kernels.wkv6 import ops as wops
+from repro_torch.kernels.wkv6.ref import wkv6_ref
 
 
 def _cuda():
@@ -121,3 +124,83 @@ def test_rglru_scan_kernel_on_card(b, t, w, with_h0):
     rh, rl = rglru_ref(a, bx, h0)
     # the kernel rounds the multiply and the add as the plain loop does
     assert torch.equal(h, rh) and torch.equal(h_last, rl)
+
+
+def _wkv_inputs(dev, b, t, h, n, dtype, decay=(0.5, -4.0), seed=0):
+    """r, k, v ~ N(0, 1) in ``dtype``; logw = -exp(a x + c) f32; u, s0."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    r, k, v = (randn(b, t, h, n).to(dtype) for _ in range(3))
+    logw = -torch.exp(decay[0] * randn(b, t, h, n) + decay[1])
+    return r, k, v, logw, 0.5 * randn(h, n), randn(b, h, n, n)
+
+
+def wkv_tol(out, ref, dtype):
+    """f32: sums in another order, 2e-4 of the largest output (the
+    reference kernel test's 2e-4, scaled); bf16: one bf16 rounding of each
+    output on top of that."""
+    atol = 2e-4 * max(1.0, float(ref.float().abs().max()))
+    rtol = 0.0 if dtype == torch.float32 else 2.0 ** -7
+    diff = (out.float() - ref.float()).abs()
+    return bool((diff <= atol + rtol * ref.float().abs()).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,h,n,c", [
+    (2, 100, 3, 16, 32),      # the reference test's shapes
+    (1, 64, 2, 64, 64),
+    (2, 33, 4, 8, 16),
+    (3, 130, 5, 64, 64),      # ragged last chunk at the model's N
+    (2, 20, 3, 32, 64),       # T < chunk
+    (1, 257, 2, 48, 64),      # N not a power of two
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_wkv6_kernel_on_card(b, t, h, n, c, dtype, with_s0):
+    dev = _cuda()
+    r, k, v, logw, u, s0 = _wkv_inputs(dev, b, t, h, n, dtype, seed=t + n)
+    s0 = s0 if with_s0 else None
+    WK.reset_launches()
+    out, s = wops.wkv(r, k, v, logw, u, s0, chunk=c)
+    assert WK.LAUNCHES["wkv6"] == 1
+    ro, rs = wkv6_ref(r, k, v, logw, u, s0, chunk=c)
+    assert out.dtype == dtype and s.dtype == torch.float32
+    assert wkv_tol(out, ro, dtype)
+    assert wkv_tol(s, rs, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decay", [(0.3, -6.0), (0.5, 1.5)],
+                         ids=["model", "clamp"])
+def test_wkv6_kernel_at_model_and_strong_decays_on_card(decay):
+    """The model's decays and a strong decay whose cumulative log-decay
+    over a chunk passes 85, so the clamp acts: finite, and within the f32
+    tolerance of the plain version (both keep subnormals)."""
+    dev = _cuda()
+    r, k, v, logw, u, _ = _wkv_inputs(dev, 2, 200, 3, 64, torch.float32,
+                                      decay, seed=9)
+    assert (float(-logw[:, :64].cumsum(1).min()) > 85.0) == (decay[1] > 0)
+    out, s = WK.wkv6(r, k, v, logw, u)
+    ro, rs = wkv6_ref(r, k, v, logw, u)
+    assert bool(torch.isfinite(out).all() and torch.isfinite(s).all())
+    assert wkv_tol(out, ro, torch.float32) and wkv_tol(s, rs, torch.float32)
+
+
+@pytest.mark.gpu
+def test_wkv6_refuses_what_it_does_not_take_on_card():
+    dev = _cuda()
+    r, k, v, logw, u, _ = _wkv_inputs(dev, 1, 8, 2, 16, torch.float32)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        WK.wkv6(r.cpu(), k, v, logw, u)
+    with pytest.raises(ValueError, match="contiguous"):
+        WK.wkv6(r.transpose(1, 2), k, v, logw, u)
+    big = torch.zeros((1, 8, 1, 128), device=dev)
+    with pytest.raises(ValueError, match="head size"):
+        WK.wkv6(big, big, big, big, torch.zeros((1, 128), device=dev))
+    with pytest.raises(ValueError, match="float32"):
+        WK.wkv6(r, k, v, logw.bfloat16(), u)
+    with pytest.raises(RuntimeError, match="forward only"):
+        wops.wkv(r.requires_grad_(), k, v, logw, u)
