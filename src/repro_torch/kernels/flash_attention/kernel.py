@@ -30,7 +30,7 @@ LAUNCHES = {"flash_attention": 0}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 256)      # the kernel's template instances
 _MAX_GRID_Y = 65535                 # batch * kv heads is gridDim.y
-_ALIGN = 16                         # bytes: the kernel loads 4 elements at once
+_ALIGN = 16                         # bytes: the kernels load 16 at once
 
 
 def reset_launches() -> None:

@@ -31,3 +31,19 @@ def attention_ref(q, k, v, *, causal=True, window=None):
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", w, v.float())
     return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def bf16_kernel_bound(q, k, v, ref, *, causal=True, window=None):
+    """Per-element limit on ``|out - ref|`` for the bf16 kernel's ``out``
+    against ``ref = attention_ref(q, k, v)`` in bf16, both (B, S, H, D).
+
+    The kernel rounds each p to bf16 before ``p @ v``, which moves its f32
+    output by at most ``u * sum(p |v|) / l`` (u = 2^-8, bf16's unit
+    roundoff): ``u`` times the attention of ``|v|``.  Each side then rounds
+    its f32 output to bf16 once, by at most ``u |out|``.  So ``|out - ref|
+    <= 2u |ref| + u attention(|v|)``, to first order in u; the factor 1.01
+    covers the second order and the f32 reorderings (about 1e-6 of
+    attention(|v|))."""
+    a = attention_ref(q.float(), k.float(), v.float().abs(), causal=causal,
+                      window=window)
+    return 1.01 * (2.0 ** -7 * ref.float().abs() + 2.0 ** -8 * a)

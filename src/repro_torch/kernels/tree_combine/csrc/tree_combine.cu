@@ -14,22 +14,43 @@
 // O(1) operations per element, so the bound is the bytes moved over the
 // 3.35 TB/s of HBM3.  On the training path each call streams a stacked
 // (16 or 32 rows) x 67M-lane buffer, far beyond the 50 MB L2, so nothing
-// is reused across calls.  The design therefore only tries to keep every
-// SM streaming: one grid-stride loop per kernel, coalesced (neighbouring
-// threads on neighbouring addresses), and for the row kernels a 2-D grid
-// of (slab, row) so that 16 rows still fill 132 SMs.  The pack needs the
-// row's absmax before it can quantize, which on a TPU is one VMEM block;
-// here blocks cannot see each other, so it takes two launches: an absmax
-// pass (per-block max, then atomicMax on the float's bits, which orders
-// like the value for non-negative floats) and a quantize pass.  Fusing the
-// two, and 16-byte vector loads and stores (rows of m+4 bytes are not
-// 16-byte aligned, so the simple version stores bytes), are later work.
+// is reused across calls.
+//
+// tree_combine (on the path: one child, 1,076,120,064 f32, 12.9 GB moved,
+// 3.85 ms at the HBM rate) keeps enough bytes in flight to cover HBM's
+// latency: 16-byte loads and stores (float4, or 8 bf16 / f16 as uint4),
+// four independent vectors per thread, all loaded before any add, and
+// streaming cache hints (__ldcs / __stcs: the stream reuses nothing in
+// L2).  The grid passes over the data once, each block one contiguous
+// run of 256 x 4 vectors, so the blocks in flight stream through memory
+// in address order: on an H100 this kernel as a persistent grid-stride
+// loop of 1, 2 or 4 (its occupancy) blocks an SM was 3-4% slower than
+// torch.add at the path's shape, and this grid is not
+// (scripts/tree_combine_grid.py times both).  The vector body
+// covers the part where recv's rows, partial and out share 16-byte
+// alignment; a scalar head and tail take the rest (any storage offset,
+// any length, rows of other alignments).  The one-child case, the
+// path's, is its own instance.
+//
+// The codec kernels keep one grid-stride loop each, coalesced
+// (neighbouring threads on neighbouring addresses), and for the row
+// kernels a 2-D grid of (slab, row) so that 16 rows still fill 132 SMs.
+// The pack needs the row's absmax before it can quantize, which on a TPU
+// is one VMEM block; here blocks cannot see each other, so it takes two
+// launches: an absmax pass (per-block max, then atomicMax on the float's
+// bits, which orders like the value for non-negative floats) and a
+// quantize pass.  Fusing the two, and 16-byte vector loads and stores in
+// the codec (rows of m+4 bytes are not 16-byte aligned, so the simple
+// version stores bytes), are later work.
 //
 // Numerics: the wire must be byte-identical to the plain version, so every
 // step is an explicitly rounded intrinsic (no FMA contraction, no fast
 // math): scale = absmax * (1/127) + 1e-30, lane = rint(x * (1 / scale)),
-// rint rounding half to even like jnp.round / torch.round.  Do not build
-// with --use_fast_math.
+// rint rounding half to even like jnp.round / torch.round.  The combine
+// sums the children first, from 0 (one child: that child), then adds the
+// partial, each add rounded (__fadd_rn): at one child in f32 it is
+// partial + recv[0], bit for bit the plain version and torch.add.  Do not
+// build with --use_fast_math.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -61,19 +82,141 @@ __device__ __forceinline__ __half from_f32<__half>(float v) {
   return __float2half_rn(v);
 }
 
-// out[i] = partial[i] + sum_c recv[c, i], accumulated in f32 (the children
-// are summed first, then added to the partial, as the plain version does)
+// 16 bytes of T as f32 lanes, and back (each lane rounded to nearest even)
 template <typename T>
-__global__ void tree_combine_kernel(const T* __restrict__ recv,
-                                    const T* __restrict__ partial,
-                                    T* __restrict__ out, int64_t nch,
-                                    int64_t len) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < len;
-       i += stride) {
-    float s = 0.0f;
-    for (int64_t c = 0; c < nch; ++c) s = __fadd_rn(s, to_f32(recv[c * len + i]));
+__device__ __forceinline__ void unpack16(const uint4& u, float* f);
+template <>
+__device__ __forceinline__ void unpack16<float>(const uint4& u, float* f) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+template <>
+__device__ __forceinline__ void unpack16<__nv_bfloat16>(const uint4& u,
+                                                        float* f) {
+  const unsigned int w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+template <>
+__device__ __forceinline__ void unpack16<__half>(const uint4& u, float* f) {
+  const unsigned int w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __half2float(__ushort_as_half((unsigned short)(w[i] & 0xffffu)));
+    f[2 * i + 1] = __half2float(__ushort_as_half((unsigned short)(w[i] >> 16)));
+  }
+}
+
+__device__ __forceinline__ unsigned int bits16(__nv_bfloat16 x) {
+  return __bfloat16_as_ushort(x);
+}
+__device__ __forceinline__ unsigned int bits16(__half x) {
+  return __half_as_ushort(x);
+}
+
+template <typename T>
+__device__ __forceinline__ uint4 pack16(const float* f) {
+  if constexpr (sizeof(T) == 4) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  } else {
+    unsigned int w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[i] = bits16(from_f32<T>(f[2 * i])) |
+             (bits16(from_f32<T>(f[2 * i + 1])) << 16);
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+constexpr int kUnroll = 4;   // independent 16-byte vectors a thread holds
+
+// out[i] = partial[i] + sum_c recv[c, i], accumulated in f32: the children
+// summed first, from 0, then added to the partial, each add rounded.  NCH
+// fixes the children count at compile time (1, the path's); NCH == 0
+// reads it from nch.  Elements [head, head + nvec * V) go as 16-byte
+// vectors (recv's rows, partial and out all 16-byte aligned at head), a
+// block's kThreads * kUnroll vectors at a time; the rest one at a time.
+template <typename T, int NCH>
+__global__ void __launch_bounds__(kThreads)
+tree_combine_kernel(const T* __restrict__ recv, const T* __restrict__ partial,
+                    T* __restrict__ out, int64_t nch, int64_t len,
+                    int64_t head, int64_t nvec) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int64_t kPer = (int64_t)kThreads * kUnroll;
+  const int64_t n_ch = NCH > 0 ? NCH : nch;
+  const int64_t threads = (int64_t)gridDim.x * blockDim.x;
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+
+  // the scalar head [0, head) and tail [body_end, len)
+  const int64_t body_end = head + nvec * V;
+  for (int64_t j = tid; j < head + len - body_end; j += threads) {
+    const int64_t i = j < head ? j : body_end + (j - head);
+    float s = NCH == 1 ? to_f32(recv[i]) : 0.0f;
+    if (NCH != 1)
+      for (int64_t c = 0; c < n_ch; ++c)
+        s = __fadd_rn(s, to_f32(recv[c * len + i]));
     out[i] = from_f32<T>(__fadd_rn(to_f32(partial[i]), s));
+  }
+
+  // the vector body: all of a thread's loads issued before any add
+  const uint4* pv = reinterpret_cast<const uint4*>(partial + head);
+  uint4* ov = reinterpret_cast<uint4*>(out + head);
+  for (int64_t start = (int64_t)blockIdx.x * kPer; start < nvec;
+       start += (int64_t)gridDim.x * kPer) {
+    const int64_t i0 = start + threadIdx.x;
+    uint4 pu[kUnroll], ru[kUnroll];
+    float s[kUnroll][V];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t i = i0 + u * kThreads;
+      pu[u] = i < nvec ? __ldcs(pv + i) : make_uint4(0u, 0u, 0u, 0u);
+    }
+    if (NCH == 1) {
+      const uint4* rv = reinterpret_cast<const uint4*>(recv + head);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int64_t i = i0 + u * kThreads;
+        ru[u] = i < nvec ? __ldcs(rv + i) : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) unpack16<T>(ru[u], s[u]);
+    } else {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+        for (int e = 0; e < V; ++e) s[u][e] = 0.0f;
+      for (int64_t c = 0; c < n_ch; ++c) {
+        const uint4* rv = reinterpret_cast<const uint4*>(recv + c * len + head);
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int64_t i = i0 + u * kThreads;
+          ru[u] = i < nvec ? __ldcs(rv + i) : make_uint4(0u, 0u, 0u, 0u);
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          float f[V];
+          unpack16<T>(ru[u], f);
+#pragma unroll
+          for (int e = 0; e < V; ++e) s[u][e] = __fadd_rn(s[u][e], f[e]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t i = i0 + u * kThreads;
+      if (i >= nvec) continue;
+      float f[V];
+      unpack16<T>(pu[u], f);
+#pragma unroll
+      for (int e = 0; e < V; ++e) f[e] = __fadd_rn(f[e], s[u][e]);
+      __stcs(ov + i, pack16<T>(f));
+    }
   }
 }
 
@@ -157,10 +300,41 @@ __global__ void q8_unpack_kernel(const int8_t* __restrict__ wires,
     o[i] = __fmul_rn((float)w[i], scale);
 }
 
-inline unsigned int blocks_1d(int64_t len) {
-  int64_t b = (len + kThreads - 1) / kThreads;
-  if (b > kMaxBlocks) b = kMaxBlocks;
-  return (unsigned int)(b < 1 ? 1 : b);
+// the combine's launch: the vector body where every pointer shares 16-byte
+// alignment, and one block for each kThreads * kUnroll vectors (or
+// kThreads scalars where there is no body), so the grid passes over the
+// data once, in address order
+template <typename T, int NCH>
+void launch_combine(const T* recv, const T* partial, T* out, int64_t nch,
+                    int64_t len, cudaStream_t s) {
+  constexpr int64_t V = 16 / sizeof(T);
+  constexpr int64_t kPer = (int64_t)kThreads * kUnroll;
+  const auto mis = [](const void* p) {
+    return (int64_t)((uintptr_t)p % 16) / (int64_t)sizeof(T);
+  };
+  const int64_t a = mis(partial);
+  const bool shared = mis(out) == a && mis(recv) == a &&
+                      (nch <= 1 || len % V == 0);
+  const int64_t head = shared ? ((V - a) % V < len ? (V - a) % V : len) : len;
+  const int64_t nvec = (len - head) / V;
+  const int64_t scalars = len - nvec * V;
+  int64_t blocks = (nvec + kPer - 1) / kPer;
+  if ((scalars + kThreads - 1) / kThreads > blocks)
+    blocks = (scalars + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffff) blocks = 0x7fffffff;
+  tree_combine_kernel<T, NCH><<<(unsigned int)blocks, kThreads, 0, s>>>(
+      recv, partial, out, nch, len, head, nvec);
+}
+
+template <typename T>
+void combine_n(const void* recv, const void* partial, void* out, int64_t nch,
+               int64_t len, cudaStream_t s) {
+  if (nch == 1)
+    launch_combine<T, 1>((const T*)recv, (const T*)partial, (T*)out, nch,
+                         len, s);
+  else
+    launch_combine<T, 0>((const T*)recv, (const T*)partial, (T*)out, nch,
+                         len, s);
 }
 
 // (slab, row) grid: enough slabs per row that all rows together fill the
@@ -182,17 +356,12 @@ int tree_combine(int dtype, const void* recv, const void* partial, void* out,
                  int64_t nch, int64_t len, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (len > 0) {
-    const unsigned int b = blocks_1d(len);
     if (dtype == 0) {
-      tree_combine_kernel<float><<<b, kThreads, 0, s>>>(
-          (const float*)recv, (const float*)partial, (float*)out, nch, len);
+      combine_n<float>(recv, partial, out, nch, len, s);
     } else if (dtype == 1) {
-      tree_combine_kernel<__nv_bfloat16><<<b, kThreads, 0, s>>>(
-          (const __nv_bfloat16*)recv, (const __nv_bfloat16*)partial,
-          (__nv_bfloat16*)out, nch, len);
+      combine_n<__nv_bfloat16>(recv, partial, out, nch, len, s);
     } else if (dtype == 2) {
-      tree_combine_kernel<__half><<<b, kThreads, 0, s>>>(
-          (const __half*)recv, (const __half*)partial, (__half*)out, nch, len);
+      combine_n<__half>(recv, partial, out, nch, len, s);
     } else {
       return (int)cudaErrorInvalidValue;
     }

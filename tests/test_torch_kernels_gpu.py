@@ -1,6 +1,7 @@
-"""The CUDA kernels (tree-combine and the int8 wire codec, flash attention,
-the RG-LRU scan, WKV6) against their plain PyTorch versions, on the card
-(marked ``gpu``; they skip without a CUDA device).  This file imports
+"""The CUDA kernels (tree-combine and the int8 wire codec, flash attention
+in f32 and in bf16 on the tensor cores, the RG-LRU scan, WKV6) against
+their plain PyTorch versions, on the card (marked ``gpu``; they skip
+without a CUDA device).  This file imports
 neither JAX nor the reference, so it runs on a machine that has only
 PyTorch:
 
@@ -11,7 +12,8 @@ import torch
 
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention import ops as fops
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                      bf16_kernel_bound)
 from repro_torch.kernels.rglru import kernel as RK
 from repro_torch.kernels.rglru.ref import rglru_ref
 from repro_torch.kernels.tree_combine import kernel as K
@@ -38,11 +40,56 @@ def test_tree_combine_kernel_on_card(nch, l, dtype):
     part = torch.randn((l,), generator=g, device=dev).to(dtype)
     out = K.tree_combine(recv, part)
     ref = tref.tree_combine_ref(recv, part).float()
-    # f32: children may be summed in another order; bf16/f16: one rounding
-    # of the f32 sum, at most one ulp of the largest value
+    assert float((out.float() - ref).abs().max()) <= _combine_tol(ref, dtype)
+
+
+def _combine_tol(ref, dtype):
+    """f32: children may be summed in another order; bf16/f16: one
+    rounding of the f32 sum, at most one ulp of the largest value."""
     scale = max(1.0, float(ref.abs().max()))
-    tol = scale * (1e-6 if dtype == torch.float32 else 2.0 ** -7)
-    assert float((out.float() - ref).abs().max()) <= tol
+    return scale * (1e-6 if dtype == torch.float32 else 2.0 ** -7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("l", [1, 3, 4097, (1 << 20) + 5])
+@pytest.mark.parametrize("nch", [1, 2, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_tree_combine_at_storage_offsets_on_card(l, nch, dtype):
+    """recv and partial as contiguous views that start at every element
+    offset within 16 bytes (1-3 for f32, 1-7 for bf16 and f16), alone and
+    together, at lengths that leave a scalar tail: the kernel's vector
+    body runs only where recv's rows, partial and out share 16-byte
+    alignment, and a scalar head and tail take the rest."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(l + nch)
+    lanes = 16 // torch.empty((), dtype=dtype).element_size()
+    rbuf = torch.randn((nch * l + lanes,), generator=g, device=dev).to(dtype)
+    pbuf = torch.randn((l + lanes,), generator=g, device=dev).to(dtype)
+    for ro, po in [(o, o) for o in range(lanes)] + [(0, o) for o in range(
+            1, lanes)] + [(o, 0) for o in range(1, lanes)]:
+        recv = rbuf[ro:ro + nch * l].view(nch, l)
+        part = pbuf[po:po + l]
+        out = K.tree_combine(recv, part)
+        ref = tref.tree_combine_ref(recv, part).float()
+        err = float((out.float() - ref).abs().max())
+        assert out.dtype == dtype and out.shape == (l,)
+        assert err <= _combine_tol(ref, dtype), (ro, po, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("l", [1, 4097, (1 << 20) + 5, 1 << 24])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_tree_combine_one_child_f32_is_torch_add_on_card(l, offset):
+    """One child in f32, the training path's call: partial + recv[0] with
+    one rounding, bit for bit the plain version and ``torch.add``."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(l)
+    recv = torch.randn((l + 1,), generator=g, device=dev)[offset:][:l]
+    part = torch.randn((l + 1,), generator=g, device=dev)[offset:][:l]
+    out = K.tree_combine(recv.view(1, l), part)
+    assert torch.equal(out, tref.tree_combine_ref(recv.view(1, l), part))
+    assert torch.equal(out, torch.add(part, recv))
 
 
 @pytest.mark.gpu
@@ -83,17 +130,57 @@ def test_flash_attention_kernel_on_card(b, s, h, kv, d, causal, window,
     FK.reset_launches()
     out = fops.attention(q, k, v, causal=causal, window=window)
     assert FK.LAUNCHES["flash_attention"] == 1
-    ref = attention_ref(q, k, v, causal=causal, window=window)
-    # the reference's kernel-test tolerances: f32 sums in another order;
-    # bf16 one rounding of the f32 output
-    tol = 2e-5 if dtype == torch.float32 else 2e-2
     assert out.dtype == dtype
-    assert float((out.float() - ref.float()).abs().max()) < tol
+    _assert_flash_close(out, q, k, v, causal, window)
+
+
+def _assert_flash_close(out, q, k, v, causal, window):
+    """The reference's kernel-test tolerances (f32: sums in another order,
+    2e-5; bf16: 2e-2), and in bf16 also the per-element bound of the
+    tensor-core kernel's roundings, which a fault in the many-key rows
+    (whose outputs are far under 2e-2) would break."""
+    ref = attention_ref(q, k, v, causal=causal, window=window)
+    err = (out.float() - ref.float()).abs()
+    assert float(err.max()) < (2e-5 if q.dtype == torch.float32 else 2e-2)
+    if q.dtype == torch.bfloat16:
+        bound = bf16_kernel_bound(q, k, v, ref, causal=causal, window=window)
+        assert bool((err <= bound).all()), float((err / bound).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,t,h,kv,window", [
+    (40, 40, 10, 1, None),        # T < 64: one ragged key tile
+    (63, 63, 9, 3, 1),            # S = 64 - 1, window of one key
+    (65, 65, 10, 1, 63),          # S = 64 + 1
+    (127, 127, 9, 3, 64),         # S = 128 - 1, window of one tile
+    (129, 129, 10, 1, 65),        # S = 128 + 1, window past a tile edge
+    (193, 193, 9, 3, None),       # S = 192 + 1, causal only
+    (100, 150, 10, 1, 70),        # T > S
+    (150, 100, 9, 3, None),       # T < S
+])
+@pytest.mark.parametrize("d", FK.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_ragged_edges_on_card(s, t, h, kv, window, d, dtype):
+    """Ragged S and T around 64-key tiles and 128-row blocks, windows of
+    1, 63, 64 and 65, G = 10 and G = 3, every head_dim: bf16 on the
+    tensor-core kernel within 2e-2 and the per-element bound, f32 on the
+    CUDA-core kernel within 2e-5, one launch each."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(s + t + d)
+    q = torch.randn((2, s, h, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((2, t, kv, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((2, t, kv, d), generator=g, device=dev).to(dtype)
+    FK.reset_launches()
+    out = fops.attention(q, k, v, window=window)
+    assert FK.LAUNCHES["flash_attention"] == 1
+    assert out.dtype == dtype and out.shape == q.shape
+    assert bool(torch.isfinite(out.float()).all())
+    _assert_flash_close(out, q, k, v, True, window)
 
 
 @pytest.mark.gpu
 def test_flash_attention_refuses_unaligned_inputs_on_card():
-    """The kernel loads 4 elements at once: a contiguous view that starts
+    """The kernels load 16 bytes at once: a contiguous view that starts
     off a 16-byte boundary is refused, not read misaligned."""
     dev = _cuda()
     buf = torch.zeros((1 + 40 * 4 * 64,), device=dev)
