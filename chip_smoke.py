@@ -35,6 +35,7 @@ exits non-zero.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import subprocess
@@ -57,6 +58,12 @@ M_ROW = N_PARAMS // 2          # one chunk row on the 4x4 torus (k=2)
 # rows; on the ring (k=1) every pack, combine and unpack is 16 full
 # gradients, more than 2^31 elements
 CODEC_SHAPES = ((N_VERT, M_ROW), (2 * N_VERT, M_ROW), (N_VERT, N_PARAMS))
+# ragged codec shapes, each at x storage offsets of 0-3 floats, with and
+# without an all-zero row and a row of one large value: m = 1, 3, 4, 15,
+# 16, 17 around one 16-byte vector, m = 1, 2, 3 mod 4 over 4-6 rows (x
+# rows and wire rows of m + 4 bytes start at every 16-byte phase)
+CODEC_SMALL = ((1, 5), (3, 257), (32, 4099), (5, 1), (5, 3), (5, 4), (5, 15),
+               (5, 16), (5, 17), (5, 2049), (5, 2050), (6, 2051), (4, 2052))
 
 
 def log(msg):
@@ -141,6 +148,19 @@ def timed_row(name, src, replaces, err, fn, plain, library, nbytes, ops,
             "library_ms": lms}
 
 
+def pack_input(dev, g, rows, m, offset, edges):
+    """(rows, m) f32 as a contiguous view ``offset`` floats into its
+    buffer; with ``edges`` the second-to-last row all zeros (scale 1e-30)
+    and the last one large value among N(0, 1) lanes."""
+    import torch
+    buf = torch.randn((rows * m + offset,), generator=g, device=dev) * 3.3
+    x = buf[offset:].view(rows, m)
+    if edges and rows >= 2:
+        x[-2] = 0.0
+        x[-1, m // 2] = 1e6
+    return x
+
+
 def phase_kernels(dev):
     """Each kernel against its plain version at the path's shapes and at
     ragged ones; returns the per-kernel rows of the result line."""
@@ -180,10 +200,12 @@ def phase_kernels(dev):
                 tol = scale * (1e-6 if dt == torch.float32 else 2.0 ** -7)
                 assert err <= tol, ("tree_combine", nch, length, dt, ro, po,
                                     err)
-    for rows, m in ((1, 5), (3, 257), (32, 4099)):
-        x = torch.randn((rows, m), generator=g, device=dev) * 3.3
+    for (rows, m), offset, edges in itertools.product(
+            CODEC_SMALL, range(4), (False, True)):
+        x = pack_input(dev, g, rows, m, offset, edges)
         w = K.q8_pack_rows(x)
-        assert torch.equal(w, R.q8_pack_rows_ref(x)), ("q8_pack", rows, m)
+        assert torch.equal(w, R.q8_pack_rows_ref(x)), ("q8_pack", rows, m,
+                                                        offset, edges)
         part = torch.randn((rows, m), generator=g, device=dev)
         err = float((K.q8_combine_rows(w, part)
                      - R.q8_combine_rows_ref(w, part)).abs().max())
@@ -235,6 +257,16 @@ def phase_kernels(dev):
         if timed_here:
             row("q8_pack_rows", 81, 0.0, lambda: K.q8_pack_rows(x),
                 lambda: R.q8_pack_rows_ref(x), None, nx + nw, 3 * nel)
+            ms = rows[-1]["ms"]
+        else:
+            ms = timed(lambda: K.q8_pack_rows(x))
+        # any exact pack reads x twice: a row's scale needs its whole
+        # absmax, and a row is far larger than the L2
+        floor = (2 * nx + nw) / HBM_BYTES_PER_S * 1e3
+        log(f"q8_pack_rows at {shape}: {ms!r} ms, bound "
+            f"{bound_ms(nx + nw, 3 * nel)[0]!r} ms (bytes, x read once), "
+            f"two-read floor {floor!r} ms ((2 * 4 + 1) * R * m bytes), "
+            f"{floor / ms:.1%} of the floor")
         del x
         err = max_err(K.q8_unpack_rows(w), R.q8_unpack_rows_ref(w))
         assert err <= 1e-6, ("q8_unpack_rows", shape, err)

@@ -68,6 +68,12 @@ class ArchConfig:
         return -(-self.vocab // m) * m
 
     @property
+    def n_experts_padded(self) -> int:
+        if not self.n_experts:
+            return 0
+        return -(-self.n_experts // self.tp_divisor) * self.tp_divisor
+
+    @property
     def act_dtype(self) -> torch.dtype:
         return DTYPES[self.act_dtype_name]
 
@@ -81,13 +87,27 @@ class ArchConfig:
         attn = d * hd * (self.n_heads * 2 + self.n_kv * 2)
         if self.family == "rwkv6":
             attn = 5 * d * d + d * 32 * 6  # r,k,v,g,o + lora decays (approx)
-        mult = 3 if self.mlp_kind in ("swiglu", "geglu") else 2
-        ffn = mult * d * self.d_ff
+        if self.is_moe:
+            ffn = self.n_experts * 3 * d * self.d_expert + \
+                self.n_shared * 3 * d * self.d_expert + d * self.n_experts
+        else:
+            mult = 3 if self.mlp_kind in ("swiglu", "geglu") else 2
+            ffn = mult * d * self.d_ff
+        layers = self.n_layers + self.n_dec_layers
+        return layers * (attn + ffn) + self.vocab * d
+
+    def active_param_count(self) -> int:
+        """Active parameters per token (MoE: top_k + shared experts only)."""
+        if not self.is_moe:
+            return self.param_count()
+        d = self.d_model
+        attn = d * self.head_dim_ * (self.n_heads * 2 + self.n_kv * 2)
+        ffn = (self.top_k + self.n_shared) * 3 * d * self.d_expert \
+            + d * self.n_experts
         return self.n_layers * (attn + ffn) + self.vocab * d
 
     def reduced(self) -> "ArchConfig":
-        """Tiny same-family config for CPU smoke tests (the reference's
-        ``reduced()`` for the families this package runs)."""
+        """Tiny same-family config for CPU smoke tests."""
         heads = min(self.n_heads, 4)
         kv = max(1, min(self.n_kv, heads))
         while heads % kv:
@@ -99,6 +119,14 @@ class ArchConfig:
             q_block=64, kv_block=64, remat=False,
             act_dtype_name="float32",
         )
+        if self.is_moe:
+            kw.update(n_experts=8, top_k=min(self.top_k, 2),
+                      d_expert=64, n_shared=min(self.n_shared, 1),
+                      moe_group_size=32)
+        if self.family == "encdec":
+            kw.update(n_layers=2, n_dec_layers=2)
+        if self.family == "vlm":
+            kw.update(n_img_tokens=8)
         if self.family == "rglru":
             kw.update(lru_width=128, window=32, head_dim=32)
         if self.family == "rwkv6":

@@ -32,16 +32,32 @@
 // any length, rows of other alignments).  The one-child case, the
 // path's, is its own instance.
 //
-// The codec kernels keep one grid-stride loop each, coalesced
-// (neighbouring threads on neighbouring addresses), and for the row
-// kernels a 2-D grid of (slab, row) so that 16 rows still fill 132 SMs.
-// The pack needs the row's absmax before it can quantize, which on a TPU
-// is one VMEM block; here blocks cannot see each other, so it takes two
-// launches: an absmax pass (per-block max, then atomicMax on the float's
-// bits, which orders like the value for non-negative floats) and a
-// quantize pass.  Fusing the two, and 16-byte vector loads and stores in
-// the codec (rows of m+4 bytes are not 16-byte aligned, so the simple
-// version stores bytes), are later work.
+// The pack (q8_pack_rows) needs a row's absmax before it can write the
+// row's first lane: the scale is fixed by the whole row, and the wire must
+// stay byte-identical, so no provisional scale.  A row on the path is 269
+// or 538 MB, far more than the 50 MB L2, shared memory and registers hold
+// together, so any exact design reads x twice: its floor is 2 reads of x
+// and 1 write of the wires, (2 * 4 + 1) * rows * m bytes over HBM's rate
+// (5.78 ms at (16, 134,515,008)), where the bytes bound (x read once)
+// is 3.21 ms.  Two launches, each a pass in the combine's form: 16-byte
+// streaming loads (__ldcs), kUnroll independent float4 a thread loaded
+// before any use, one block per contiguous run of kThreads * kUnroll
+// vectors of a row (rows on gridDim.y), so the grid passes over x once in
+// address order.  The absmax pass reduces a block to one value and makes
+// one atomicMax on the float's bits (which order like the value for
+// non-negative floats) per block; the quantize pass turns four lanes into
+// one 4-byte store.  Each row finds its own 16-byte boundary from its own
+// address (with m % 4 != 0 or a storage offset, rows of x differ), block
+// 0 of the row takes the at most 3 + 3 scalar lanes before and after the
+// vector body, and the 4-byte stores run where the row's wire lanes are
+// 4-byte aligned at the body (always on the path: m % 4 == 0, x 16-byte
+// aligned), byte stores elsewhere.
+//
+// The other codec kernels keep one grid-stride loop each, coalesced
+// (neighbouring threads on neighbouring addresses), on a 2-D grid of
+// (slab, row) so that 16 rows still fill 132 SMs; 16-byte loads and
+// stores there (rows of m+4 bytes are not 16-byte aligned, so the simple
+// version moves bytes) are later work.
 //
 // Numerics: the wire must be byte-identical to the plain version, so every
 // step is an explicitly rounded intrinsic (no FMA contraction, no fast
@@ -220,16 +236,51 @@ tree_combine_kernel(const T* __restrict__ recv, const T* __restrict__ partial,
   }
 }
 
-// per-row max|x| into amax[row] (as float bits; amax zeroed by the caller)
-__global__ void q8_absmax_kernel(const float* __restrict__ x,
-                                 unsigned int* __restrict__ amax, int64_t m) {
+// lanes of the row at xr before its first 16-byte boundary (at most m)
+__device__ __forceinline__ int64_t row_head(const float* xr, int64_t m) {
+  const int64_t h = (4 - (int64_t)(((uintptr_t)xr / sizeof(float)) % 4)) % 4;
+  return h < m ? h : m;
+}
+
+// the row's scalar lane j of the head [0, head) and tail [head + 4 nvec, m)
+__device__ __forceinline__ int64_t scalar_lane(int64_t j, int64_t head,
+                                               int64_t nvec) {
+  return j < head ? j : head + 4 * nvec + (j - head);
+}
+
+__device__ __forceinline__ float absmax4(const float4& v) {
+  return fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w)));
+}
+
+// one lane: rint(x * inv) as int8, in the low byte
+__device__ __forceinline__ unsigned int q8_lane(float v, float inv) {
+  return (unsigned int)(uint8_t)(int8_t)(int)rintf(__fmul_rn(v, inv));
+}
+
+// per-row max|x| into amax[row] (as float bits; amax zeroed by the caller):
+// block (b, row) takes vectors [b, b + 1) * kThreads * kUnroll of the row's
+// body, block (0, row) also its scalar head and tail
+__global__ void __launch_bounds__(kThreads)
+q8_absmax_kernel(const float* __restrict__ x, unsigned int* __restrict__ amax,
+                 int64_t m) {
+  constexpr int64_t kPer = (int64_t)kThreads * kUnroll;
   const int64_t row = blockIdx.y;
   const float* xr = x + row * m;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t head = row_head(xr, m);
+  const int64_t nvec = (m - head) / 4;
   float v = 0.0f;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < m;
-       i += stride)
-    v = fmaxf(v, fabsf(xr[i]));
+  if (blockIdx.x == 0 && threadIdx.x < m - 4 * nvec)
+    v = fabsf(xr[scalar_lane(threadIdx.x, head, nvec)]);
+  const float4* xv = reinterpret_cast<const float4*>(xr + head);
+  const int64_t i0 = (int64_t)blockIdx.x * kPer + threadIdx.x;
+  float4 u[kUnroll];
+#pragma unroll
+  for (int k = 0; k < kUnroll; ++k) {
+    const int64_t i = i0 + k * kThreads;
+    u[k] = i < nvec ? __ldcs(xv + i) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+#pragma unroll
+  for (int k = 0; k < kUnroll; ++k) v = fmaxf(v, absmax4(u[k]));
   for (int off = 16; off > 0; off >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   __shared__ float warp_max[kThreads / 32];
@@ -237,30 +288,61 @@ __global__ void q8_absmax_kernel(const float* __restrict__ x,
   if (lane == 0) warp_max[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    v = lane < (int)(blockDim.x >> 5) ? warp_max[lane] : 0.0f;
+    v = lane < kThreads / 32 ? warp_max[lane] : 0.0f;
     for (int off = 16; off > 0; off >>= 1)
       v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
     if (lane == 0) atomicMax(amax + row, __float_as_uint(v));
   }
 }
 
-// lanes = rint(x * (1 / scale)) as int8; block (0, row) writes the tail
-__global__ void q8_quantize_kernel(const float* __restrict__ x,
-                                   const unsigned int* __restrict__ amax,
-                                   int8_t* __restrict__ out, int64_t m) {
+// lanes = rint(x * (1 / scale)) as int8, over the absmax pass's grid;
+// block (0, row) also writes the scalar lanes and the scale's 4-byte tail
+__global__ void __launch_bounds__(kThreads)
+q8_quantize_kernel(const float* __restrict__ x,
+                   const unsigned int* __restrict__ amax,
+                   int8_t* __restrict__ out, int64_t m) {
+  constexpr int64_t kPer = (int64_t)kThreads * kUnroll;
   const int64_t row = blockIdx.y;
   const float scale =
       __fadd_rn(__fmul_rn(__uint_as_float(amax[row]), kInv127), 1e-30f);
   const float inv = __fdiv_rn(1.0f, scale);
   const float* xr = x + row * m;
   int8_t* o = out + row * (m + 4);
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < m;
-       i += stride)
-    o[i] = (int8_t)(int)rintf(__fmul_rn(xr[i], inv));
-  if (blockIdx.x == 0 && threadIdx.x < 4) {
-    const unsigned int bits = __float_as_uint(scale);
-    o[m + threadIdx.x] = (int8_t)((bits >> (8 * threadIdx.x)) & 0xffu);
+  const int64_t head = row_head(xr, m);
+  const int64_t nvec = (m - head) / 4;
+  if (blockIdx.x == 0) {
+    if (threadIdx.x < m - 4 * nvec) {
+      const int64_t i = scalar_lane(threadIdx.x, head, nvec);
+      o[i] = (int8_t)q8_lane(xr[i], inv);
+    }
+    if (threadIdx.x < 4) {
+      const unsigned int bits = __float_as_uint(scale);
+      o[m + threadIdx.x] = (int8_t)((bits >> (8 * threadIdx.x)) & 0xffu);
+    }
+  }
+  const float4* xv = reinterpret_cast<const float4*>(xr + head);
+  int8_t* ob = o + head;
+  const bool words = (uintptr_t)ob % 4 == 0;
+  const int64_t i0 = (int64_t)blockIdx.x * kPer + threadIdx.x;
+  float4 u[kUnroll];
+#pragma unroll
+  for (int k = 0; k < kUnroll; ++k) {
+    const int64_t i = i0 + k * kThreads;
+    u[k] = i < nvec ? __ldcs(xv + i) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+#pragma unroll
+  for (int k = 0; k < kUnroll; ++k) {
+    const int64_t i = i0 + k * kThreads;
+    if (i >= nvec) continue;
+    const unsigned int w = q8_lane(u[k].x, inv) | q8_lane(u[k].y, inv) << 8 |
+                           q8_lane(u[k].z, inv) << 16 |
+                           q8_lane(u[k].w, inv) << 24;
+    if (words) {
+      __stcs(reinterpret_cast<unsigned int*>(ob) + i, w);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ob[4 * i + e] = (int8_t)(w >> (8 * e));
+    }
   }
 }
 
@@ -337,7 +419,7 @@ void combine_n(const void* recv, const void* partial, void* out, int64_t nch,
                          len, s);
 }
 
-// (slab, row) grid: enough slabs per row that all rows together fill the
+// the combine and unpack's (slab, row) grid: enough slabs per row that all rows together fill the
 // card, never more slabs than a row has thread-sized pieces
 inline dim3 grid_rows(int64_t rows, int64_t m) {
   int64_t per_row = (kMaxBlocks + rows - 1) / rows;
@@ -369,13 +451,17 @@ int tree_combine(int dtype, const void* recv, const void* partial, void* out,
   return (int)cudaGetLastError();
 }
 
-// x (rows, m) f32 -> wires (rows, m + 4) int8; amax: rows uint32 of scratch
+// x (rows, m) f32 -> wires (rows, m + 4) int8; amax: rows uint32 of scratch.
+// Both passes: one block per kThreads * kUnroll vectors of a row.
 int q8_pack_rows(const void* x, void* wires, void* amax, int64_t rows,
                  int64_t m, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (rows > 0) {
+    constexpr int64_t kPer = (int64_t)kThreads * kUnroll;
+    int64_t blocks = ((m + 3) / 4 + kPer - 1) / kPer;
+    if (blocks < 1) blocks = 1;
+    const dim3 g((unsigned int)blocks, (unsigned int)rows, 1);
     cudaMemsetAsync(amax, 0, (size_t)rows * sizeof(unsigned int), s);
-    const dim3 g = grid_rows(rows, m);
     q8_absmax_kernel<<<g, kThreads, 0, s>>>((const float*)x,
                                             (unsigned int*)amax, m);
     q8_quantize_kernel<<<g, kThreads, 0, s>>>(

@@ -3,7 +3,7 @@
 A tensor on the CPU takes the plain PyTorch version (``ref``); a tensor on
 a CUDA device launches the hand-written kernel (``kernel``) or raises,
 never falling back.  Unlike the reference there is no cap on the buffer
-size: the CUDA kernels grid-stride over any length.
+size: the CUDA kernels take any length.
 
 On CUDA the codec kernels take and return f32 (the gradient dtype of the
 training path); the combine takes f32, bf16 or f16.

@@ -92,13 +92,37 @@ def test_tree_combine_one_child_f32_is_torch_add_on_card(l, offset):
     assert torch.equal(out, torch.add(part, recv))
 
 
+def _pack_input(dev, g, rows, m, offset, edges):
+    """(rows, m) f32 as a contiguous view at ``offset`` floats into its
+    buffer; with ``edges``, the second-to-last row all zeros (scale 1e-30,
+    every lane 0) and the last one large value among N(0, 1) lanes (most
+    of its lanes round to 0)."""
+    buf = torch.randn((rows * m + offset,), generator=g, device=dev) * 3.3
+    x = buf[offset:].view(rows, m)
+    if edges and rows >= 2:
+        x[-2] = 0.0
+        x[-1, m // 2] = 1e6
+    return x
+
+
+# the path's layout and ragged rows; m = 1, 3, 4, 15, 16, 17 around one
+# 16-byte vector; m = 1, 2, 3 mod 4 at two block widths and more, over 5
+# rows, so both x's rows and the wire rows (m + 4 bytes each) start at
+# every 16-byte phase
 @pytest.mark.gpu
 @pytest.mark.parametrize("rows,m", [(16, 1 << 20), (3, 257), (1, 5),
-                                    (32, 4099)])
-def test_q8_kernels_on_card(rows, m):
+                                    (32, 4099), (5, 1), (5, 3), (5, 4),
+                                    (5, 15), (5, 16), (5, 17), (5, 2049),
+                                    (5, 2050), (6, 2051), (4, 2052)])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("edges", [False, True])
+def test_q8_kernels_on_card(rows, m, offset, edges):
+    """The pack byte-identical to the plain version (its 16-byte body, the
+    scalar head and tail each row finds from its own address, 4-byte or
+    byte stores), the combine and unpack within 1e-6."""
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(1)
-    x = torch.randn((rows, m), generator=g, device=dev) * 3.3
+    x = _pack_input(dev, g, rows, m, offset, edges)
     w = K.q8_pack_rows(x)
     assert torch.equal(w, tref.q8_pack_rows_ref(x))
     part = torch.randn((rows, m), generator=g, device=dev)
