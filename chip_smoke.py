@@ -18,9 +18,11 @@ q8_combine); and serves three full-width models through the serving
 entry point, bf16, 32 greedy tokens each: recurrentgemma-2b
 (batch 8, prompt 4096), smollm-135m (batch 8, prompt 1024) and rwkv6-7b
 (batch 8, prompt 4096), each followed by an f32 check that a decode
-step's logits equal those of a prefill of the same tokens.  Every failed
-check raises, so the exit code is non-zero and no result line is
-printed.  The last line is
+step's logits equal those of a prefill of the same tokens.  Beside
+WKV6's row it logs where the kernel's time goes ("wkv6 parts": copies
+with one part of its chunk loop compiled out, and mma.sync TF32 alone).
+Every failed check raises, so the exit code is non-zero and no result
+line is printed.  The last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -48,6 +50,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+TF32_OPS_PER_S = 495e12        # H100 SXM TF32 tensor cores, dense
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 N_VERT = 16
 N_PARAMS = 134_515_008         # smollm-135m, the stacked payload's width
@@ -319,6 +322,52 @@ WKV_DECAYS = {"model": (0.3, -6.0), "reference test": (0.5, -4.0),
               "strong": (0.5, 2.0)}
 WKV_PATH = (8, 4096, 64, 64)   # one rwkv6-7b prefill layer: B, T, H, N
 WKV_CHUNK = 64
+# parts of the WKV6 kernel's chunk loop that wkv6_parts compiles out, each
+# cut from the source as [start marker, end marker); the copies of the
+# next chunk are cut by turning their condition false
+WKV_PARTS = {
+    "prefix": ("    // 1. the decay prefix",
+               "    __syncthreads();\n\n    // 2. o of strip"),
+    "o": ("    // 2. o of strip", "    // 3. kdecay^T v"),
+    "state": ("#pragma unroll\n    for (int kk = 0; kk < 8; ++kk) {"
+              "          // rows past",
+              "    __syncthreads();  // every read of S"),
+}
+WKV_LOADS = "    if (c + 1 < nc) {"
+WKV_CUTS = {"no prefix": ("prefix",), "no o": ("o",),
+            "no state": ("state",), "no loads": ("loads",),
+            "loads only": ("prefix", "o", "state")}
+# mma.sync m16n8k8 TF32 alone: 8 independent accumulators a warp
+MMA_RATE_SOURCE = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+__global__ void __launch_bounds__(256) mma_tf32_rate(float* out, int iters) {
+  float c[8][4] = {};
+  uint32_t a[4], b[2];
+  for (int i = 0; i < 4; ++i)
+    a[i] = __float_as_uint(1.0f + threadIdx.x * 1e-3f + i);
+  b[0] = a[1];
+  b[1] = a[2];
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      asm volatile(
+          "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, "
+          "%3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+          : "+f"(c[j][0]), "+f"(c[j][1]), "+f"(c[j][2]), "+f"(c[j][3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
+            "r"(b[1]));
+  }
+  float s = 0.0f;
+  for (int j = 0; j < 8; ++j)
+    for (int e = 0; e < 4; ++e) s += c[j][e];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int mma_rate(void* out, int blocks, int iters) {
+  mma_tf32_rate<<<blocks, 256>>>((float*)out, iters);
+  return (int)cudaGetLastError();
+}
+"""
 
 
 def live_pairs(s, window):
@@ -484,6 +533,11 @@ def phase_wkv6(dev):
     from repro_torch.kernels.wkv6 import kernel as WK
     from repro_torch.kernels.wkv6.ref import CLAMP, wkv6_ref
     g = torch.Generator(device=dev).manual_seed(4)
+    # ptxas of both instantiations (f32, bf16): registers, static shared
+    # memory (the tiles are dynamic: 214,560 and 165,120 bytes), spills
+    ptxas = [ln.strip() for ln in WK.LIB.info.get("log", "").splitlines()
+             if "Used" in ln or "spill" in ln]
+    log(f"wkv6 ptxas: {' | '.join(ptxas) if ptxas else 'no build log'}")
 
     def inputs(b, t, h, n, dt, decay):
         r, k, v = (torch.randn((b, t, h, n), generator=g, device=dev).to(dt)
@@ -543,11 +597,80 @@ def phase_wkv6(dev):
                     "src/repro/kernels/wkv6/kernel.py:75", e_o,
                     lambda: WK.wkv6(r, k, v, logw, u, chunk=WKV_CHUNK),
                     lambda: wkv6_ref(r, k, v, logw, u, chunk=WKV_CHUNK),
-                    None, nbytes, ops)
+                    None, nbytes, ops, TF32_OPS_PER_S)
     row["shape"] = "rwkv6-7b prefill"
+    wkv6_parts(dev, row["ms"], r, k, v, logw, u)
     del r, k, v, logw, u
     torch.cuda.empty_cache()
     return row
+
+
+def cut_wkv6(source, parts):
+    """The kernel's source with ``parts`` (keys of WKV_PARTS, or "loads")
+    compiled out; raises if a marker moved."""
+    for part in parts:
+        if part == "loads":
+            if source.count(WKV_LOADS) != 1:
+                raise RuntimeError("wkv6 parts: the loads moved")
+            source = source.replace(WKV_LOADS, "    if (false) {")
+            continue
+        start, end = WKV_PARTS[part]
+        i, j = source.find(start), source.find(end)
+        if source.count(start) != 1 or j < i:
+            raise RuntimeError(f"wkv6 parts: the {part} part moved")
+        source = source[:i] + source[j:]
+    return source
+
+
+def wkv6_parts(dev, full_ms, r, k, v, logw, u):
+    """Where WKV6's time goes at the path's shape: copies of the kernel
+    with one part of its chunk loop compiled out (WKV_CUTS), each a wrong
+    function that is timed and never checked, against the full kernel's
+    ``full_ms``; and mma.sync TF32 alone, the most its products could
+    reach.  Logs each; launches nothing through the wrappers."""
+    import ctypes
+
+    import torch
+    from repro_torch.kernels._build import Library, build_all, build_dir
+    from repro_torch.kernels.wkv6 import kernel as WK
+    out_dir = build_dir()
+    libs = {}
+    for name, parts in WKV_CUTS.items():
+        path = out_dir / f"wkv6_part{len(libs)}.cu"
+        path.write_text(cut_wkv6(WK.LIB.source.read_text(), parts))
+        libs[name] = Library(path, f"wkv6_part{len(libs)}",
+                             WK.LIB.signatures)
+    mma_path = out_dir / "mma_tf32_rate.cu"
+    mma_path.write_text(MMA_RATE_SOURCE)
+    mma = Library(mma_path, "mma_tf32_rate",
+                  {"mma_rate": [ctypes.c_void_p, ctypes.c_int,
+                                ctypes.c_int]})
+    build_all(list(libs.values()) + [mma])
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sink = torch.empty((4 * sms * 256,), device=dev)
+    iters = 4000
+    assert mma.load().mma_rate(sink.data_ptr(), 4 * sms, iters) == 0
+    ms = timed(lambda: mma.load().mma_rate(sink.data_ptr(), 4 * sms, iters))
+    flops = 2 * 16 * 8 * 8 * (4 * sms * 8 * iters * 8)
+    log(f"wkv6 parts: mma.sync m16n8k8 TF32 alone {flops / ms / 1e9!r} "
+        f"TFLOP/s")
+    b, t, h, n = r.shape
+    out = torch.empty_like(r)
+    s_fin = torch.empty((b, h, n, n), device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for name, lib in libs.items():
+        fn = lib.load().wkv6
+
+        def call(fn=fn):
+            err = fn(1, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     logw.data_ptr(), u.data_ptr(), None, out.data_ptr(),
+                     s_fin.data_ptr(), b, t, h, n, WKV_CHUNK, stream)
+            assert err == 0, (name, err)
+
+        ms = timed(call)
+        log(f"wkv6 parts: {name} {ms!r} ms ({ms - full_ms!r} ms against "
+            f"the full kernel's {full_ms!r})")
 
 
 def reset_all():

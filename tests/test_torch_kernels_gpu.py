@@ -301,6 +301,75 @@ def test_wkv6_kernel_at_model_and_strong_decays_on_card(decay):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("t", [80, 96, 4097])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_at_16_row_boundaries_on_card(t, dtype):
+    """A last chunk that ends on a 16-row strip boundary inside the
+    64-row tile (80, 96) and one of a single row (4097)."""
+    dev = _cuda()
+    r, k, v, logw, u, s0 = _wkv_inputs(dev, 2, t, 2, 64, dtype, seed=t)
+    out, s = WK.wkv6(r, k, v, logw, u, s0)
+    ro, rs = wkv6_ref(r, k, v, logw, u, s0)
+    assert wkv_tol(out, ro, dtype) and wkv_tol(s, rs, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_at_the_path_heads_below_the_sm_count_on_card(dtype):
+    """rwkv6-7b's heads (64 of 64) at batch 1: 64 blocks, fewer than the
+    SMs, over 8 chunks, at the model's decays."""
+    dev = _cuda()
+    r, k, v, logw, u, _ = _wkv_inputs(dev, 1, 512, 64, 64, dtype,
+                                      (0.3, -6.0), seed=5)
+    out, s = WK.wkv6(r, k, v, logw, u)
+    ro, rs = wkv6_ref(r, k, v, logw, u)
+    assert wkv_tol(out, ro, dtype) and wkv_tol(s, rs, torch.float32)
+
+
+@pytest.mark.gpu
+def test_wkv6_large_inputs_in_the_clamp_regime_on_card():
+    """r scaled by 100 and k by 4 where the clamp acts: the score factors
+    reach |k| e^{85} (finite: past |k| = 41 that factor overflows f32 in
+    the plain version too, whose output is then NaN, so k is not scaled
+    further) and the diagonal score tiles are masked by a select.  Output
+    and state are finite and within the f32 tolerance."""
+    dev = _cuda()
+    r, k, v, logw, u, _ = _wkv_inputs(dev, 2, 200, 3, 64, torch.float32,
+                                      (0.5, 1.5), seed=11)
+    r, k = 100.0 * r, 4.0 * k
+    assert float(-logw[:, :64].cumsum(1).min()) > 85.0
+    out, s = WK.wkv6(r, k, v, logw, u)
+    ro, rs = wkv6_ref(r, k, v, logw, u)
+    assert bool(torch.isfinite(ro).all() and torch.isfinite(rs).all())
+    assert bool(torch.isfinite(out).all() and torch.isfinite(s).all())
+    assert wkv_tol(out, ro, torch.float32) and wkv_tol(s, rs, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,dtype,offset", [
+    (20, torch.bfloat16, 0),  # rows of 40 bytes: no 16-byte copies
+    (6, torch.float32, 0),    # rows of 24 bytes
+    (64, torch.bfloat16, 1),  # r, k, v, logw one element off 16 bytes
+])
+def test_wkv6_scalar_loads_on_card(n, dtype, offset):
+    """Where N or a pointer forbids 16-byte copies the kernel fills its
+    stages by scalar loads; the result is the same function."""
+    dev = _cuda()
+    r, k, v, logw, u, s0 = _wkv_inputs(dev, 2, 150, 3, n, dtype, seed=n)
+
+    def shifted(x):
+        buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=dev)
+        y = buf[offset:].view(x.shape)
+        y.copy_(x)
+        return y
+
+    r, k, v, logw = map(shifted, (r, k, v, logw))
+    out, s = WK.wkv6(r, k, v, logw, u, s0)
+    ro, rs = wkv6_ref(r, k, v, logw, u, s0)
+    assert wkv_tol(out, ro, dtype) and wkv_tol(s, rs, torch.float32)
+
+
+@pytest.mark.gpu
 def test_wkv6_refuses_what_it_does_not_take_on_card():
     dev = _cuda()
     r, k, v, logw, u, _ = _wkv_inputs(dev, 1, 8, 2, 16, torch.float32)
