@@ -10,12 +10,14 @@ PyTorch version at ragged small shapes and at every shape its path gives
 it, and times it (flash attention in bf16, on the tensor cores, at both
 prefill shapes, and in f32, on the CUDA cores, at recurrentgemma-2b's;
 beside SDPA, and at smollm-135m's also SDPA's is_causal form); sums a
-full-size stacked gradient with the EDST engine (4x4 torus f32 and int8,
-ring 16 int8); trains the full-width smollm-135m data-parallel over the
-16 vertices of the 4x4 torus (edst, edst + int8 wire, psum_dp) and of
-the ring 16 (edst + int8 wire, the fabric whose reduce hops run
-q8_combine); and serves three full-width models through the serving
-entry point, bf16, 32 greedy tokens each: recurrentgemma-2b
+full-size stacked gradient with every EDST engine (per-tree, fused,
+pipelined at 1 and 4 segments, striped; 4x4 torus f32 and int8, ring 16
+int8); trains the full-width smollm-135m data-parallel over the 16
+vertices of the 4x4 torus (edst with each engine, edst + int8 wire,
+psum_dp, and one profiled edst step whose trace it splits into the
+sync's waves) and of the ring 16 (edst + int8 wire, the fabric whose
+reduce hops run q8_combine); and serves three full-width models through
+the serving entry point, bf16, 32 greedy tokens each: recurrentgemma-2b
 (batch 8, prompt 4096), smollm-135m (batch 8, prompt 1024) and rwkv6-7b
 (batch 8, prompt 4096), each followed by an f32 check that a decode
 step's logits equal those of a prefill of the same tokens.  Beside
@@ -27,8 +29,9 @@ line is printed.  The last line is
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 preceded by one JSON line ``{"kernels": [...]}`` (launches summed over
-the runs of each kernel's path, training or serving, each run counted
-from 0 just before it and read just after it; times from CUDA events in
+the runs of each kernel's path, an allreduce, training or serving, each
+run counted from 0 just before it and read just after it; times from
+CUDA events in
 this run, each the median of 5 rounds of about 20 ms of back-to-back
 calls) and the card's name and power limit from nvidia-smi.
 
@@ -40,6 +43,7 @@ from __future__ import annotations
 import itertools
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -55,12 +59,14 @@ BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 N_VERT = 16
 N_PARAMS = 134_515_008         # smollm-135m, the stacked payload's width
 M_ROW = N_PARAMS // 2          # one chunk row on the 4x4 torus (k=2)
-# (rows, lanes) of every codec call on the training path: a torus reduce
-# hop packs and unpacks 16 vertex rows of a chunk row; the torus's
-# pack-once broadcast packs and finally unpacks 16 x 2 (vertex, tree)
-# rows; on the ring (k=1) every pack, combine and unpack is 16 full
-# gradients, more than 2^31 elements
+# (rows, lanes) of the codec calls of pipelined S=1 and the per-tree and
+# fused engines: a torus reduce hop packs and unpacks 16 vertex rows of a
+# chunk row; the torus's pack-once broadcast packs and finally unpacks
+# 16 x 2 (vertex, tree) rows; on the ring (k=1) every pack, combine and
+# unpack is 16 full gradients, more than 2^31 elements.  path_shapes()
+# adds the S=4 segments and the striped wires.
 CODEC_SHAPES = ((N_VERT, M_ROW), (2 * N_VERT, M_ROW), (N_VERT, N_PARAMS))
+FABRICS = {"torus4x4": (4, 4), "ring16": (16,)}
 # ragged codec shapes, each at x storage offsets of 0-3 floats, with and
 # without an all-zero row and a row of one large value: m = 1, 3, 4, 15,
 # 16, 17 around one 16-byte vector, m = 1, 2, 3 mod 4 over 4-6 rows (x
@@ -164,6 +170,31 @@ def pack_input(dev, g, rows, m, offset, edges):
     return x
 
 
+def path_shapes():
+    """What the allreduce engines hand the kernels at full width beyond
+    CODEC_SHAPES: ``(codec shapes, combine windows)``.  Pipelined S=4
+    packs, unpacks and combines one ``(16, ceil(mrow / 4))`` segment of a
+    chunk row a hop; a striped wave packs and unpacks 16 rows of its wire
+    width (the widest wave of each fabric) and adds each arrival into a
+    circular window of a vertex's row, at most two slices (the widest
+    reduce window of each fabric, as ``(row width, [(row offset, arrival
+    offset, width), ...])``)."""
+    from repro_torch.core.collectives import REDUCE, striped_tables
+    codec = [(N_VERT, -(-M_ROW // 4)), (N_VERT, -(-N_PARAMS // 4))]
+    windows = []
+    for dims in FABRICS.values():
+        bound = striped_tables(engine_specs(dims)["striped"], N_PARAMS)
+        codec.append((N_VERT, max(bw.wire for bw in bound.waves)))
+        length, off = max((int(bw.recv_len[d]), int(bw.recv_off[d]))
+                          for bw in bound.waves if bw.op == REDUCE
+                          for _, d in bw.perm)
+        first = min(length, bound.mrow - off)
+        slices = [(off, 0, first)] + ([(0, first, length - first)]
+                                      if length > first else [])
+        windows.append((bound.mrow, slices))
+    return codec, windows
+
+
 def phase_kernels(dev):
     """Each kernel against its plain version at the path's shapes and at
     ragged ones; returns the per-kernel rows of the result line."""
@@ -247,9 +278,36 @@ def phase_kernels(dev):
     del part, recv
     torch.cuda.empty_cache()
 
+    # the new engines' accumulates: an S=4 segment of every vertex, and a
+    # striped arrival into its circular window's slices (views at the
+    # window's own storage offsets), each bit for bit the plain version
+    engine_shapes, windows = path_shapes()
+    for rows_, m in engine_shapes[:2]:
+        part = torch.randn((rows_ * m,), generator=g, device=dev)
+        recv = torch.randn((1, rows_ * m), generator=g, device=dev)
+        assert torch.equal(K.tree_combine(recv, part),
+                           R.tree_combine_ref(recv, part)), \
+            ("tree_combine at an S=4 segment", rows_, m)
+        del part, recv
+    for mrow, slices in windows:
+        state = torch.randn((mrow,), generator=g, device=dev)
+        arrival = torch.randn((sum(w for _, _, w in slices),), generator=g,
+                              device=dev)
+        for lo, at, width in slices:
+            window = state[lo:lo + width]
+            recv = arrival[at:at + width].view(1, -1)
+            assert torch.equal(K.tree_combine(recv, window),
+                               R.tree_combine_ref(recv, window)), \
+                ("tree_combine at a striped window", mrow, lo, at, width)
+        del state, arrival
+    torch.cuda.empty_cache()
+    log(f"kernels: tree_combine at the S=4 segments {engine_shapes[:2]} "
+        f"and the striped windows {windows} matches the plain version bit "
+        f"for bit")
+
     # the codec at every shape the path gives it, one shape at a time;
     # timed at the ring's, the largest and the only one of q8_combine_rows
-    for shape in CODEC_SHAPES:
+    for shape in CODEC_SHAPES + tuple(engine_shapes):
         timed_here = shape == (N_VERT, N_PARAMS)
         x = torch.randn(shape, generator=g, device=dev) * 3.3
         w = K.q8_pack_rows(x)
@@ -766,16 +824,102 @@ def phase_serve(dev):
     return per_run
 
 
-def phase_allreduce(dev):
-    """Sum a random (16, 134,515,008) f32 payload with the stacked engine
-    and hold it against ``payload.sum(0)``."""
-    import torch
+# the engines phase_allreduce runs, and the (fabric, mesh dims, codec) cells
+ENGINES = ("per_tree", "fused", "pipelined", "pipelined_s4", "striped")
+TWIN_SLICE = 1_000_003        # payload lanes each engine also sums on the CPU
+ALLREDUCE_CELLS = (("torus4x4", (4, 4), "off"), ("torus4x4", (4, 4), "full"),
+                   ("ring16", (16,), "full"))
+
+
+def engine_specs(dims):
+    """Every engine's compiled program for the DP fabric of ``dims``."""
     from repro_torch.core import topologies as topo
     from repro_torch.core.collectives import (allreduce_schedule,
-                                              pipelined_spec_from_schedule)
+                                              fused_spec_from_schedule,
+                                              pipelined_spec_from_schedule,
+                                              striped_spec_from_schedule)
     from repro_torch.core.edst_star import star_edsts
+    from repro_torch.dist.tree_allreduce import spec_from_schedule
+    sp = topo.device_topology(dims)
+    sched = allreduce_schedule(sp.n, star_edsts(sp).trees)
+    axes = ("a", "b")
+    pipe = pipelined_spec_from_schedule(sched, axes)
+    return {"per_tree": spec_from_schedule(sched, axes),
+            "fused": fused_spec_from_schedule(sched, axes),
+            "pipelined": pipe, "pipelined_s4": pipe,
+            "striped": striped_spec_from_schedule(sched, axes)}
+
+
+def run_engine(engine, x, spec, fabric, codec):
+    """One allreduce of the stacked payload through the engine's entry
+    point (the per-tree engine takes the device's codec: int8 on CUDA)."""
+    from repro_torch.dist import striped, tree_allreduce as T
+    q = codec != "off"
+    if engine == "per_tree":
+        return T.per_tree_allreduce(x, spec, fabric, quantize=q)
+    if engine == "fused":
+        return T.fused_tree_allreduce(x, spec, fabric, quantize=q,
+                                      codec=codec)
+    if engine == "striped":
+        return striped.striped_allreduce(x, spec, fabric, quantize=q,
+                                         codec=codec)
+    return T.pipelined_tree_allreduce(
+        x, spec, fabric, quantize=q, codec=codec,
+        segments=4 if engine == "pipelined_s4" else 1)
+
+
+def ulps_off(y, ref):
+    """Elements of ``y`` more than 4 ulps of ``ref``'s value off it, and
+    the largest difference."""
+    import torch
+    a = ref.abs()
+    tol = 4 * (torch.nextafter(a, torch.full_like(a, math.inf)) - a)
+    diff = (y - ref).abs()
+    return int((diff > tol).sum()), float(diff.max())
+
+
+def cpu_twin(engine, xs, spec, codec):
+    """The engine's sum of the stacked ``xs`` on the CPU, through the plain
+    versions of the kernels, at ``codec``.  The per-tree engine's own
+    codec on the CPU is "off", so there its trees run through
+    ``run_tree_program`` at ``codec``, chunked as the engine chunks."""
+    import torch
+    import torch.nn.functional as F
     from repro_torch.dist.fabric import StackedFabric
-    from repro_torch.dist.tree_allreduce import pipelined_tree_allreduce
+    from repro_torch.dist.tree_allreduce import run_tree_program
+    fabric = StackedFabric(N_VERT, xs.device)
+    if engine != "per_tree" or codec == "off":
+        return run_engine(engine, xs, spec, fabric, codec)
+    size = xs.shape[1]
+    chunks = F.pad(xs, (0, -size % spec.k)).view(N_VERT, spec.k, -1)
+    return torch.cat([run_tree_program(chunks[:, j].contiguous(), tree,
+                                       fabric, True, codec=codec)
+                      for j, tree in enumerate(spec.trees)], 1)[:, :size]
+
+
+def program_waves(engine, spec, codec):
+    """Waves of the program the engine runs (hops at 4 segments: every
+    wave moves each of the 4 segments once)."""
+    from repro_torch.core.collectives import striped_tables, wave_wire_bytes
+    if engine == "striped":
+        return len(striped_tables(spec, N_PARAMS).waves)
+    if engine.startswith("pipelined"):
+        waves = len(spec.q8_waves if codec != "off" else spec.waves)
+        return waves * (4 if engine == "pipelined_s4" else 1)
+    return len(wave_wire_bytes(spec, N_PARAMS * 4))
+
+
+def phase_allreduce(dev):
+    """Sum a random (16, 134,515,008) f32 payload with every engine on the
+    4x4 torus (f32 and int8) and the ring 16 (int8) and hold each sum
+    against ``payload.sum(0)``; pipelined S=4 in f32 must equal S=1 bit
+    for bit.  Each engine also sums a ``(16, TWIN_SLICE)`` slice on the
+    card and on the CPU (f32 bit for bit, int8 within 4 ulps of the
+    value).  Each engine runs twice, the second run counted from 0 just
+    before it and read just after it; returns ``{run: {kernel:
+    launches}}``."""
+    import torch
+    from repro_torch.dist.fabric import StackedFabric
     g = torch.Generator(device=dev).manual_seed(1)
     x = torch.randn((N_VERT, N_PARAMS), generator=g, device=dev)
     expect = x.sum(0)
@@ -784,37 +928,104 @@ def phase_allreduce(dev):
     # scale is at most max_i sum_v |x_v[i]| / 127 (partial sums never
     # exceed it); a total passes n-1 reduce packs and 1 broadcast pack
     sabs = float(x.abs().sum(0).max())
+    xs = x[:, :TWIN_SLICE].contiguous()
     fabric = StackedFabric(N_VERT, dev)
-    for name, dims, codec in (("torus4x4", (4, 4), "off"),
-                              ("torus4x4", (4, 4), "full"),
-                              ("ring16", (16,), "full")):
-        sp = topo.device_topology(dims)
-        spec = pipelined_spec_from_schedule(
-            allreduce_schedule(sp.n, star_edsts(sp).trees), ("a", "b"))
-        secs, y = [], None
-        for _ in range(2):      # the first call also grows the memory pool
-            y = None
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            y = pipelined_tree_allreduce(x, spec, fabric,
-                                         quantize=codec != "off", codec=codec)
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
-        same = bool((y == y[0]).all())
-        err = float((y[0] - expect).abs().max())
-        del y
-        if codec == "off":
-            tol, rule = 1e-4 * emax, "1e-4 * max|sum|"
-        else:
-            tol = N_VERT * sabs / 254.0
-            rule = "n * max_i sum_v|x_v[i]| / 254 (half step x hops)"
-        log(f"allreduce {name} k={spec.k} waves={len(spec.waves)} "
-            f"codec={codec}: {secs[0]!r}s then {secs[1]!r}s, max|err| {err:.3g} <= {tol:.3g} "
-            f"[{rule}], rows identical {same}")
-        assert same, (name, codec, "vertices disagree")
-        assert err <= tol, (name, codec, err, tol)
-    del x, expect
+    per_run = {}
+    for name, dims, codec in ALLREDUCE_CELLS:
+        specs = engine_specs(dims)
+        one = None
+        for engine in ENGINES:
+            spec = specs[engine]
+            secs, y = [], None
+            for i in range(2):  # the first call also grows the memory pool
+                y = None
+                torch.cuda.synchronize()
+                if i:
+                    reset_all()
+                t0 = time.perf_counter()
+                y = run_engine(engine, x, spec, fabric, codec)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            tag = f"allreduce {engine} {name} {codec}"
+            per_run[tag] = c = counts()
+            # the same engine at a slice of the payload, on the card and on
+            # the CPU: the kernels round as their plain versions do, so f32
+            # is bit for bit and int8 within 4 ulps of the value
+            ys = run_engine(engine, xs, spec, fabric, codec).cpu()
+            yc = cpu_twin(engine, xs.cpu(), spec, codec)
+            twin_bad, twin_diff = ulps_off(ys, yc)
+            twin_equal = torch.equal(ys, yc)
+            del ys, yc
+            errs = [float((y[v] - expect).abs().max()) for v in range(N_VERT)]
+            err = max(errs)
+            same = bool((y == y[0]).all())
+            if codec == "off":
+                tol, rule = 1e-4 * emax, "1e-4 * max|sum|"
+            else:
+                tol = N_VERT * sabs / 254.0
+                rule = "n * max_i sum_v|x_v[i]| / 254 (half step x hops)"
+            equal_s1 = None
+            if engine == "pipelined" and codec == "off":
+                one = y
+            elif engine == "pipelined_s4" and codec == "off":
+                equal_s1 = torch.equal(y, one)
+                one = None
+            del y
+            log(f"{tag}: k={spec.k} waves={program_waves(engine, spec, codec)}"
+                f" {secs[0]!r}s then {secs[1]!r}s, max|err| {err:.3g} <= "
+                f"{tol:.3g} [{rule}], rows identical {same}"
+                + ("" if equal_s1 is None else f", equal to S=1 {equal_s1}")
+                + f", launches {c}; at {tuple(xs.shape)} against the CPU: "
+                f"equal {twin_equal}, max|diff| {twin_diff!r}, "
+                f"{twin_bad} elements past 4 ulps")
+            assert err <= tol, (tag, err, tol)
+            assert twin_equal or (codec != "off" and not twin_bad), \
+                (tag, "card and CPU differ", twin_diff, twin_bad)
+            # the striped int8 allgather re-codes every hop (as the
+            # reference's does), so its vertices hold different roundings
+            assert same or (engine == "striped" and codec != "off"), tag
+            assert equal_s1 is not False, (tag, "S=4 differs from S=1")
+            if engine != "pipelined":       # the engines this slice added
+                assert c["tree_combine"] > 0, (tag, c)
+                if codec != "off":
+                    assert c["q8_pack_rows"] > 0 and \
+                        c["q8_unpack_rows"] > 0, (tag, c)
+            torch.cuda.empty_cache()
+    del x, xs, expect
     torch.cuda.empty_cache()
+    return per_run
+
+
+def trace_split(path, waves):
+    """The profiled step's split from its Chrome trace: the second step's
+    ``train/step1`` range (host clock, ends with the loss read), the
+    ``edst/`` wave ranges inside it (asserted one a wave of the program),
+    and the device's busy time (kernels, copies and fills, by the host
+    range their launch falls in: the whole step, the sync's waves).
+    Returns a dict of ms."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = [e for e in events if e.get("cat") == "user_annotation"]
+    step = next(e for e in ranges if e["name"] == "train/step1")
+    lo, hi = step["ts"], step["ts"] + step["dur"]
+    edst = [e for e in ranges if e["name"].startswith("edst/")
+            and lo <= e["ts"] <= hi]
+    assert len(edst) == waves, ("edst ranges in the profiled step",
+                                len(edst), waves)
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    device = [(launched.get(e.get("args", {}).get("correlation")), e["dur"])
+              for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    device = [(t, d) for t, d in device if t is not None and lo <= t <= hi]
+    in_waves = sum(d for t, d in device
+                   if any(r["ts"] <= t <= r["ts"] + r["dur"] for r in edst))
+    return {"step_ms": step["dur"] / 1e3,
+            "waves_host_ms": sum(r["dur"] for r in edst) / 1e3,
+            "device_busy_ms": sum(d for _, d in device) / 1e3,
+            "device_busy_in_waves_ms": in_waves / 1e3,
+            "device_events": len(device)}
 
 
 def phase_train(dev):
@@ -845,12 +1056,20 @@ def phase_train(dev):
     def flat(tree):
         return torch.cat([t.reshape(-1) for t in tree_leaves(tree)])
 
-    edst = run("edst torus4x4", ["--mesh", "4,4,1", "--sync", "edst",
-                                 "--steps", "3"], keep=True)
-    p0, d_edst = flat(edst.init_params), flat(edst.first_step_params)
-    gn_edst = edst.grad_norms[0]
-    d_edst -= p0
-    del edst
+    # the first step of each engine on the torus, to hold against psum_dp's
+    # (and a warm second step, for its s/step)
+    firsts = {}
+    for engine in ("pipelined", "fused", "striped"):
+        tag = "edst torus4x4" if engine == "pipelined" \
+            else f"edst {engine} torus4x4"
+        res = run(tag, ["--mesh", "4,4,1", "--sync", "edst", "--edst-engine",
+                        engine, "--steps", "3" if engine == "pipelined"
+                        else "2"], keep=True)
+        p0 = flat(res.init_params)
+        firsts[engine] = (flat(res.first_step_params) - p0, res.grad_norms[0])
+        if engine == "pipelined":
+            warm_step = min(res.step_seconds[1:])
+        del res
     run("edst+q8 torus4x4", ["--mesh", "4,4,1", "--sync", "edst",
                              "--quantize-grads", "--steps", "3"])
     run("edst+q8 ring16", ["--mesh", "16,1", "--sync", "edst",
@@ -864,14 +1083,47 @@ def phase_train(dev):
     # relative to its own size shows a single flipped sign (~2e-4)
     assert torch.equal(flat(psum.init_params), p0), "different init"
     d_psum = flat(psum.params) - p0
-    rel = float((d_edst - d_psum).norm() / d_psum.norm())
-    gn_rel = abs(gn_edst - psum.grad_norms[0]) / psum.grad_norms[0]
-    log(f"edst vs psum_dp, step 1: |d_edst - d_psum| / |d_psum| {rel!r} "
-        f"(<= 1e-5), max {float((d_edst - d_psum).abs().max())!r}; grad "
-        f"norm {gn_edst!r} vs {psum.grad_norms[0]!r}, relative {gn_rel!r} "
-        f"(<= 1e-6)")
-    assert rel <= 1e-5, rel
-    assert gn_rel <= 1e-6, gn_rel
+    for engine, (d_edst, gn_edst) in firsts.items():
+        rel = float((d_edst - d_psum).norm() / d_psum.norm())
+        gn_rel = abs(gn_edst - psum.grad_norms[0]) / psum.grad_norms[0]
+        log(f"edst {engine} vs psum_dp, step 1: |d_edst - d_psum| / "
+            f"|d_psum| {rel!r} (<= 1e-5), max "
+            f"{float((d_edst - d_psum).abs().max())!r}; grad norm "
+            f"{gn_edst!r} vs {psum.grad_norms[0]!r}, relative {gn_rel!r} "
+            f"(<= 1e-6)")
+        assert rel <= 1e-5, (engine, rel)
+        assert gn_rel <= 1e-6, (engine, gn_rel)
+    del psum, firsts, d_psum
+
+    # one profiled edst step (the second of two; the first warms up): one
+    # edst/ range a wave of its program, and the device's busy time in them
+    prof_dir = ROOT / "build" / "profile"
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    res = run("edst torus4x4 profiled", ["--mesh", "4,4,1", "--sync", "edst",
+                                         "--steps", "2", "--profile-dir",
+                                         str(prof_dir)])
+    from repro_torch.dist.steps import edst_spec_for_mesh
+    waves = len(edst_spec_for_mesh((4, 4, 1), ("pod", "data",
+                                               "model")).waves)
+    split = trace_split(res.profile_trace, waves)
+    # the profiler's own host cost stretches the profiled step, so the
+    # device's share is also read against the unprofiled warm step
+    log(f"profiled edst step (torus4x4, f32, step 2 of 2): {split}; "
+        f"{waves} edst/ ranges; device busy "
+        f"{split['device_busy_ms'] / split['step_ms']:.1%} of the profiled "
+        f"step, {split['device_busy_ms'] / 1e3 / warm_step:.1%} of the "
+        f"unprofiled warm step ({warm_step!r} s); in the waves "
+        f"{split['device_busy_in_waves_ms']!r} ms "
+        f"({split['device_busy_in_waves_ms'] / 1e3 / warm_step:.1%} of the "
+        f"unprofiled step); host s/step {res.step_seconds}")
+    # the split in PERF.md rests on the trace's device events: a trace
+    # without them (no CUDA activity recorded) fails the run
+    assert split["device_events"] > 0, ("no device events in the trace",
+                                        split)
+    assert split["device_busy_in_waves_ms"] > 0, ("no device time inside "
+                                                  "the edst/ ranges", split)
+    del res
+    shutil.rmtree(prof_dir, ignore_errors=True)
     peak = torch.cuda.max_memory_allocated()
     log(f"train peak memory: {peak / 1e9:.2f} GB")
     assert peak < 60e9, peak
@@ -893,13 +1145,14 @@ def main():
     rows = phase_kernels(dev) + [phase_flash(dev), phase_rglru(dev),
                                  phase_wkv6(dev)]
 
-    phase_allreduce(dev)
     # the main paths, each run counted on its own
-    per_run = phase_train(dev)
+    per_run = phase_allreduce(dev)
+    per_run.update(phase_train(dev))
     per_run.update(phase_serve(dev))
     launches = {name: sum(c[name] for c in per_run.values())
                 for name in counts()}
-    log(f"launches over the training and serving runs: {launches}")
+    log(f"launches over the allreduce, training and serving runs: "
+        f"{launches}")
     for name, n in launches.items():
         assert n > 0, f"{name} never launched on its path"
     for r in rows:

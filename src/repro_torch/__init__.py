@@ -10,5 +10,9 @@ and the training entry point (:mod:`repro_torch.launch.train`).  The
 second slice is serving (:mod:`repro_torch.launch.serve`): the ``lm`` and
 ``rglru`` families' prefill and decode, with the flash attention and
 RG-LRU scan kernels (:mod:`repro_torch.kernels.flash_attention`,
-:mod:`repro_torch.kernels.rglru`).
+:mod:`repro_torch.kernels.rglru`).  Later slices serve ``rwkv6``
+(:mod:`repro_torch.kernels.wkv6`) and add every EDST engine of the
+reference with its spec compilers (:mod:`repro_torch.dist.tree_allreduce`,
+:mod:`repro_torch.dist.striped`) and the metrics registry
+(:mod:`repro_torch.telemetry`).
 """

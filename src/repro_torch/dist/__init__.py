@@ -1,2 +1,3 @@
 """Data-parallel training over the EDST allreduce: the stacked fabric,
-the pipelined engine and the train step."""
+the engines (pipelined, fused, per-tree in ``tree_allreduce``, striped in
+``striped``) and the train step."""

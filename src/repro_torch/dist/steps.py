@@ -7,9 +7,10 @@ data-parallel gradients are combined:
 
   * ``"psum_dp"`` -- a plain sum over the replicas (the reference's
     ``jax.lax.psum``);
-  * ``"edst"``    -- the pipelined k-tree allreduce over the paper's
+  * ``"edst"``    -- the k-tree allreduce over the paper's
     edge-disjoint spanning trees of the DP fabric
-    (:func:`edst_spec_for_mesh`).
+    (:func:`edst_spec_for_mesh`), through ``tree_allreduce`` in the
+    compiled form ``engine`` names (:data:`ENGINES`).
 
 The DP axes (``pod``, ``data``) form a :class:`StackedFabric` of n
 vertices on one device.  Parameters are replicated, so one copy is held;
@@ -29,16 +30,20 @@ import numpy as np
 import torch
 
 from ..core import topologies as topo
-from ..core.collectives import (PipelinedAllreduceSpec, allreduce_schedule,
-                                pipelined_spec_from_schedule)
+from ..core.collectives import (FusedAllreduceSpec, PipelinedAllreduceSpec,
+                                StripedCollectiveSpec, allreduce_schedule,
+                                fused_spec_from_schedule,
+                                pipelined_spec_from_schedule,
+                                striped_spec_from_schedule)
 from ..core.edst_star import star_edsts
 from ..models.transformer import loss_fn
 from ..optim.adamw import tree_leaves
 from .fabric import StackedFabric
-from .tree_allreduce import pipelined_tree_allreduce
+from .tree_allreduce import tree_allreduce
 
 DATA_AXES = ("pod", "data")
 SYNC_MODES = ("psum_dp", "edst")
+ENGINES = ("pipelined", "fused", "striped")
 
 
 def dp_extent(mesh_shape, axis_names) -> int:
@@ -64,16 +69,38 @@ def dp_fabric_for_mesh(mesh_shape, axis_names):
 
 
 @functools.lru_cache(maxsize=None)
-def _edst_spec_cached(mesh_shape, axis_names):
+def _edst_spec_cached(mesh_shape, axis_names, engine, schedule):
     sp, names = dp_fabric_for_mesh(mesh_shape, axis_names)
+    if schedule == "composed":
+        # the compositional path never materializes the flat message DAG
+        from ..core.product_schedule import composed_spec_for_star
+        return composed_spec_for_star(sp, names, engine=engine)
     sched = allreduce_schedule(sp.n, star_edsts(sp).trees)
-    return pipelined_spec_from_schedule(sched, names)
+    if engine == "fused":
+        return fused_spec_from_schedule(sched, names, schedule=schedule)
+    if engine == "striped":
+        return striped_spec_from_schedule(sched, names, schedule=schedule)
+    return pipelined_spec_from_schedule(sched, names, schedule=schedule)
 
 
-def edst_spec_for_mesh(mesh_shape, axis_names) -> PipelinedAllreduceSpec:
-    """Pipelined EDST allreduce spec for the data-parallel fabric of a
-    device mesh (see :func:`dp_fabric_for_mesh`), cached by (mesh, axes)."""
-    return _edst_spec_cached(tuple(mesh_shape), tuple(axis_names))
+def edst_spec_for_mesh(
+        mesh_shape, axis_names, engine: str = "pipelined",
+        schedule: str = "greedy"
+) -> PipelinedAllreduceSpec | FusedAllreduceSpec | StripedCollectiveSpec:
+    """EDST allreduce spec for the data-parallel fabric of a device mesh
+    (see :func:`dp_fabric_for_mesh`).  ``engine`` picks the compiled form:
+    ``"pipelined"`` (default: the list-scheduled segment-streaming wave
+    program), ``"striped"`` (the reduce-scatter/allgather program of
+    :mod:`repro_torch.dist.striped`: stripe-sized wires) or ``"fused"``
+    (the round-aligned baseline).  ``schedule`` picks the wave-assembly
+    strategy (``repro_torch.core.collectives.SCHEDULES``): ``"greedy"``
+    list scheduling, ``"search"`` the seeded hillclimb, or ``"composed"``
+    the compositional product-schedule compiler.  Cached by (mesh, axes,
+    engine, schedule): repeated calls return the same object."""
+    if engine not in ENGINES:
+        raise ValueError(f"engine {engine!r} not in {ENGINES}")
+    return _edst_spec_cached(tuple(mesh_shape), tuple(axis_names), engine,
+                             schedule)
 
 
 def _unflatten(flat, like):
@@ -96,12 +123,17 @@ def _unflatten(flat, like):
 
 
 def make_train_step(cfg, opt, mesh_shape, axis_names, mode: str = "edst",
-                    quantize: bool = False):
+                    quantize: bool = False, engine: str = "pipelined",
+                    segments="auto"):
     """Build the train step for a mesh (see the module docstring).
 
     ``quantize`` sends int8 chunks over the trees where the device's codec
     policy allows it (off on the CPU, ``"full"`` on CUDA; see
-    :func:`~repro_torch.dist.tree_allreduce.resolve_codec`).  The batch
+    :func:`~repro_torch.dist.tree_allreduce.resolve_codec`).  ``engine``
+    (``mode="edst"``) selects the compiled allreduce form (see
+    :func:`edst_spec_for_mesh`); ``segments`` streams the pipelined
+    engine's chunks in that many segments (``"auto"``: see
+    :func:`~repro_torch.dist.tree_allreduce.auto_segments`).  The batch
     ``{"tokens": (B, S + 1)}`` is split evenly over the n DP vertices in
     row-major order, as ``shard_map`` splits it.  Returns metrics
     ``loss`` (mean over vertices), ``xent``, ``grad_norm`` and ``lr``."""
@@ -110,7 +142,7 @@ def make_train_step(cfg, opt, mesh_shape, axis_names, mode: str = "edst",
     n = dp_extent(mesh_shape, axis_names)
     spec = None
     if mode == "edst" and n > 1:
-        spec = edst_spec_for_mesh(mesh_shape, axis_names)
+        spec = edst_spec_for_mesh(mesh_shape, axis_names, engine=engine)
     fabrics: dict = {}
 
     def sync(g):
@@ -123,8 +155,8 @@ def make_train_step(cfg, opt, mesh_shape, axis_names, mode: str = "edst",
         fabric = fabrics.get(dev)
         if fabric is None:
             fabric = fabrics[dev] = StackedFabric(n, dev)
-        return pipelined_tree_allreduce(g, spec, fabric,
-                                        quantize=quantize)[0] / n
+        return tree_allreduce(g, spec, fabric, quantize=quantize,
+                              segments=segments)[0] / n
 
     def step(params, opt_state, batch):
         tokens = batch["tokens"]

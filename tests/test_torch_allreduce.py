@@ -127,12 +127,15 @@ def test_engine_policies():
     assert resolve_codec("auto", "cpu") == "off"
     assert resolve_codec(None, torch.device("cuda", 0)) == "full"
     with pytest.raises(ValueError):
-        resolve_codec("zstd")
-    assert resolve_segments("auto") == 1 and resolve_segments(1) == 1
-    with pytest.raises(NotImplementedError):
-        resolve_segments(4)
-    # integer payloads travel verbatim even when quantization is asked for
+        resolve_codec("zstd", "cpu")
+    with pytest.raises(TypeError):      # the device is required
+        resolve_codec(None)
     spec = _spec((4, 4))
+    assert resolve_segments("auto", spec, 100, "cpu") == 1
+    assert resolve_segments(1, spec, 100, "cpu") == 1
+    # S>1 is the pipelined scan (tests/test_torch_engines.py)
+    assert resolve_segments(4, spec, 100, "cpu") == 4
+    # integer payloads travel verbatim even when quantization is asked for
     x = torch.arange(16 * 7, dtype=torch.int64).reshape(16, 7)
     y = pipelined_tree_allreduce(x, spec, StackedFabric(16, "cpu"),
                                  quantize=True, codec="full")

@@ -34,6 +34,17 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("module", [
+    "core/collectives.py", "core/schedule_search.py",
+    "core/product_schedule.py", "telemetry/metrics.py",
+    "dist/tree_allreduce.py", "dist/striped.py", "dist/steps.py",
+    "launch/train.py"])
+def test_the_engine_modules_are_checked(module):
+    """The EDST engines, their compilers and telemetry are among the
+    files checked above."""
+    assert ROOT / "src" / "repro_torch" / module in FILES
+
+
 def test_the_check_sees_forbidden_imports(tmp_path):
     f = tmp_path / "m.py"
     f.write_text("import repro_torch.core\nfrom repro.models import x\n"

@@ -4,11 +4,15 @@ AdamW is held against ``repro.optim.AdamW`` step for step on the same
 gradients.  One reduced ``smollm-135m`` training step on ``--mesh 4,4,1``
 (16 data-parallel vertices) is held against the reference's
 ``make_train_step`` run under ``shard_map`` on 16 fake host devices (a
-subprocess), for ``psum_dp`` and ``edst``, from the reference's key-0
-parameters and the same batch; ``edst`` equals ``psum_dp``.  Also: the
-port's modules load neither JAX nor the reference package, and the train
-entry point raises without a CUDA device unless the CPU is asked for.
+subprocess), for ``psum_dp`` and ``edst`` (with each of the three
+engines), from the reference's key-0 parameters and the same batch; every
+``edst`` engine equals ``psum_dp``, and streaming the pipelined engine in
+segments changes nothing.  Also: the train entry point's engine, profiler
+and metrics options, the port's modules load neither JAX nor the
+reference package, and the train entry point raises without a CUDA device
+unless the CPU is asked for.
 """
+import json
 import subprocess
 import sys
 
@@ -91,13 +95,16 @@ mesh = jax.make_mesh((4, 4, 1), ('pod', 'data', 'model'),
                      axis_types=(AxisType.Auto,) * 3)
 opt = AdamW(cosine_schedule(3e-4, 20, 100))
 out = {'params': np.asarray(ravel_pytree(params)[0])}
-for mode in ('psum_dp', 'edst'):
-    step = jax.jit(make_train_step(api, opt, mesh, mode=mode))
+for tag, mode, engine in (('psum_dp', 'psum_dp', 'pipelined'),
+                          ('edst', 'edst', 'pipelined'),
+                          ('edst-fused', 'edst', 'fused'),
+                          ('edst-striped', 'edst', 'striped')):
+    step = jax.jit(make_train_step(api, opt, mesh, mode=mode, engine=engine))
     new_p, _, met = step(params, opt.init(params),
                          {'tokens': jnp.asarray(tokens)})
-    out[mode + '/params'] = np.asarray(ravel_pytree(new_p)[0])
+    out[tag + '/params'] = np.asarray(ravel_pytree(new_p)[0])
     for k in ('loss', 'grad_norm', 'lr'):
-        out[mode + '/' + k] = np.asarray(met[k])
+        out[tag + '/' + k] = np.asarray(met[k])
 np.savez(OUT, **out)
 """
 
@@ -124,21 +131,24 @@ def _init_params(flat):
     return params
 
 
-def _port_step(mode, params, tokens):
+def _port_step(mode, params, tokens, engine="pipelined", segments="auto"):
     cfg = tconfigs.get("smollm-135m").reduced()
     opt = TAdamW(t_cosine(3e-4, 20, 100))
-    step = make_train_step(cfg, opt, MESH, NAMES, mode=mode)
+    step = make_train_step(cfg, opt, MESH, NAMES, mode=mode, engine=engine,
+                           segments=segments)
     new_p, _, met = step(params, opt.init(params),
                          {"tokens": torch.as_tensor(tokens, dtype=torch.long)})
     flat = torch.cat([p.reshape(-1) for p in tree_leaves(new_p)]).numpy()
     return flat, met
 
 
-@pytest.mark.parametrize("mode", ["psum_dp", "edst"])
+@pytest.mark.parametrize("mode", ["psum_dp", "edst", "edst-fused",
+                                  "edst-striped"])
 def test_train_step_matches_reference(reference_step, mode):
     tokens, ref = reference_step
     params = _init_params(ref["params"])
-    flat, met = _port_step(mode, params, tokens)
+    sync, _, engine = mode.partition("-")
+    flat, met = _port_step(sync, params, tokens, engine or "pipelined")
     assert abs(float(met["loss"]) - float(ref[mode + "/loss"])) < 1e-5
     assert abs(float(met["grad_norm"]) - float(ref[mode + "/grad_norm"])) \
         < 1e-5 * float(ref[mode + "/grad_norm"])
@@ -160,6 +170,31 @@ def test_edst_step_equals_psum_dp(reference_step):
     assert np.max(np.abs(fe - fp)) <= 1e-6
 
 
+@pytest.mark.parametrize("engine", ["fused", "striped"])
+def test_edst_engines_equal_psum_dp(reference_step, engine):
+    """The fused and striped engines' first step is psum_dp's (the same
+    limit as the pipelined engine's, above)."""
+    tokens, ref = reference_step
+    params = _init_params(ref["params"])
+    fe, me = _port_step("edst", params, tokens, engine)
+    fp, mp = _port_step("psum_dp", params, tokens)
+    assert float(me["loss"]) == float(mp["loss"])
+    assert abs(float(me["grad_norm"]) - float(mp["grad_norm"])) \
+        <= 1e-6 * float(mp["grad_norm"])
+    assert np.max(np.abs(fe - fp)) <= 1e-6
+
+
+def test_segments_do_not_change_the_step(reference_step):
+    """The pipelined engine streamed in 4 segments gives the 1-segment
+    step's parameters, bit for bit."""
+    tokens, ref = reference_step
+    params = _init_params(ref["params"])
+    f1, m1 = _port_step("edst", params, tokens, segments=1)
+    f4, m4 = _port_step("edst", params, tokens, segments=4)
+    assert np.array_equal(f1, f4)
+    assert float(m1["grad_norm"]) == float(m4["grad_norm"])
+
+
 def test_dp_fabric_and_spec_for_mesh():
     sp, names = dp_fabric_for_mesh(MESH, NAMES)
     assert names == ("pod", "data") and sp.n == 16
@@ -168,6 +203,15 @@ def test_dp_fabric_and_spec_for_mesh():
     ring = edst_spec_for_mesh((16, 1), ("data", "model"))
     assert (ring.k, len(ring.waves), ring.q8_boundary) == (1, 16, 8)
     assert edst_spec_for_mesh(MESH, NAMES) is spec
+    fused = edst_spec_for_mesh(MESH, NAMES, engine="fused")
+    striped = edst_spec_for_mesh(MESH, NAMES, engine="striped")
+    assert (fused.k, fused.num_collectives) == (2, 22)
+    assert (striped.k, len(striped.waves)) == (2, 23)
+    assert edst_spec_for_mesh(MESH, NAMES, engine="striped") is striped
+    composed = edst_spec_for_mesh(MESH, NAMES, schedule="composed")
+    assert composed.k == 2 and composed is not spec
+    with pytest.raises(ValueError):
+        edst_spec_for_mesh(MESH, NAMES, engine="ring")
     with pytest.raises(ValueError):
         dp_fabric_for_mesh((1, 4), ("data", "model"))
 
@@ -183,6 +227,37 @@ def test_train_cli_runs_on_cpu():
              zip(tree_leaves(res.first_step_params),
                  tree_leaves(res.init_params))]
     assert min(moved) > 0.0     # the first step moved every parameter
+
+
+def test_train_cli_engine_profile_and_metrics(tmp_path):
+    """``--edst-engine``, ``--profile-dir`` (a Chrome trace with one
+    ``train/step`` range a step and one ``edst/`` range a wave of the
+    step's program) and ``--metrics-out`` (steps and the noted program)."""
+    from repro_torch.telemetry import metrics
+    metrics.reset()
+    try:
+        res = ttrain.main(["--reduced", "--steps", "2", "--batch", "16",
+                           "--seq", "8", "--mesh", "4,4,1", "--sync", "edst",
+                           "--edst-engine", "fused", "--device", "cpu",
+                           "--profile-dir", str(tmp_path / "prof"),
+                           "--metrics-out", str(tmp_path / "m.json")])
+        dumped = json.loads((tmp_path / "m.json").read_text())
+    finally:
+        metrics.reset()
+    assert all(np.isfinite(res.losses))
+    with open(res.profile_trace) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    spec = edst_spec_for_mesh(MESH, NAMES, engine="fused")
+    assert names.count("train/step0") == names.count("train/step1") == 1
+    waves = [n for n in names if n.startswith("edst/")]
+    assert len(waves) == 2 * spec.num_collectives
+    assert waves[0] == "edst/t*/w0/reduce"
+    steps = dumped["edst_train_steps_total"]["values"]
+    assert steps == [{"labels": {"mode": "edst"}, "value": 2.0}]
+    noted = dumped["edst_program_waves"]["values"]
+    assert noted == [{"labels": {"engine": "fused"},
+                      "value": float(spec.num_collectives)}]
 
 
 def test_train_cli_needs_cuda_unless_cpu_is_asked():
