@@ -20,7 +20,13 @@ reduce hops run q8_combine); and serves three full-width models through
 the serving entry point, bf16, 32 greedy tokens each: recurrentgemma-2b
 (batch 8, prompt 4096), smollm-135m (batch 8, prompt 1024) and rwkv6-7b
 (batch 8, prompt 4096), each followed by an f32 check that a decode
-step's logits equal those of a prefill of the same tokens.  Beside
+step's logits equal those of a prefill of the same tokens; then trains
+ZeRO-1 over the torus (held to psum_dp, over the int8 wire, through the
+striped fault runtime with a link of tree 0 killed and the moments
+resharded, checkpointed and resumed bit for bit, restored onto a
+degraded element map) and runs the recovery loop (--recover, a masked
+probe fed to the controller until it flips, a step on the flipped
+entry held to psum_dp).  Beside
 WKV6's row it logs where the kernel's time goes ("wkv6 parts": copies
 with one part of its chunk loop compiled out, and mma.sync TF32 alone).
 Every failed check raises, so the exit code is non-zero and no result
@@ -67,6 +73,7 @@ M_ROW = N_PARAMS // 2          # one chunk row on the 4x4 torus (k=2)
 # adds the S=4 segments and the striped wires.
 CODEC_SHAPES = ((N_VERT, M_ROW), (2 * N_VERT, M_ROW), (N_VERT, N_PARAMS))
 FABRICS = {"torus4x4": (4, 4), "ring16": (16,)}
+TORUS_MESH, MESH_NAMES = (4, 4, 1), ("pod", "data", "model")
 # ragged codec shapes, each at x storage offsets of 0-3 floats, with and
 # without an all-zero row and a row of one large value: m = 1, 3, 4, 15,
 # 16, 17 around one 16-byte vector, m = 1, 2, 3 mod 4 over 4-6 rows (x
@@ -170,6 +177,19 @@ def pack_input(dev, g, rows, m, offset, edges):
     return x
 
 
+def _widest_reduce_window(bound):
+    """The widest reduce-scatter arrival of a bound striped program, as
+    ``(row width, [(row offset, arrival offset, width), ...])``."""
+    from repro_torch.core.collectives import REDUCE
+    length, off = max((int(bw.recv_len[d]), int(bw.recv_off[d]))
+                      for bw in bound.waves if bw.op == REDUCE
+                      for _, d in bw.perm)
+    first = min(length, bound.mrow - off)
+    slices = [(off, 0, first)] + ([(0, first, length - first)]
+                                  if length > first else [])
+    return bound.mrow, slices
+
+
 def path_shapes():
     """What the allreduce engines hand the kernels at full width beyond
     CODEC_SHAPES: ``(codec shapes, combine windows)``.  Pipelined S=4
@@ -178,20 +198,27 @@ def path_shapes():
     width (the widest wave of each fabric) and adds each arrival into a
     circular window of a vertex's row, at most two slices (the widest
     reduce window of each fabric, as ``(row width, [(row offset, arrival
-    offset, width), ...])``)."""
-    from repro_torch.core.collectives import REDUCE, striped_tables
+    offset, width), ...])``).  The zero1 path's reduce-scatter adds, for
+    each degraded and rebuilt entry of the torus's striped fault runtime
+    (weighted by its fractions), its widest reduce-scatter wire and
+    window."""
+    from repro_torch.core.collectives import striped_tables
+    from repro_torch.dist.steps import fault_runtime_for_mesh
     codec = [(N_VERT, -(-M_ROW // 4)), (N_VERT, -(-N_PARAMS // 4))]
     windows = []
     for dims in FABRICS.values():
         bound = striped_tables(engine_specs(dims)["striped"], N_PARAMS)
         codec.append((N_VERT, max(bw.wire for bw in bound.waves)))
-        length, off = max((int(bw.recv_len[d]), int(bw.recv_off[d]))
-                          for bw in bound.waves if bw.op == REDUCE
-                          for _, d in bw.perm)
-        first = min(length, bound.mrow - off)
-        slices = [(off, 0, first)] + ([(0, first, length - first)]
-                                      if length > first else [])
-        windows.append((bound.mrow, slices))
+        windows.append(_widest_reduce_window(bound))
+    rt = fault_runtime_for_mesh(TORUS_MESH, MESH_NAMES, engine="striped")
+    for e in rt.entries[1:]:
+        bound = striped_tables(e.spec, N_PARAMS, e.fractions)
+        shape = (N_VERT, max(bw.wire for bw in bound.rs_waves))
+        if shape not in codec:
+            codec.append(shape)
+        window = _widest_reduce_window(bound)
+        if window not in windows:
+            windows.append(window)
     return codec, windows
 
 
@@ -1130,6 +1157,367 @@ def phase_train(dev):
     return per_run
 
 
+def _dense_state(step, mu, nu, emap, params):
+    """The dense ``OptState`` holding the sharded moments ``mu`` / ``nu``
+    laid out on the element map ``emap`` (numpy, -1 = padding)."""
+    import torch
+    from repro_torch.dist.steps import _unflatten
+    from repro_torch.optim.adamw import OptState
+    emap = torch.from_numpy(emap).to(mu.device)
+    live = emap >= 0
+    idx = emap[live]
+    del emap
+    out = []
+    for m in (mu, nu):
+        flat = torch.zeros((N_PARAMS,), dtype=torch.float32, device=m.device)
+        flat[idx] = m[live]
+        out.append(_unflatten(flat, params))
+    return OptState(step, out[0], out[1])
+
+
+def _held_to_psum(tag, params, dense_state, batch, new_params, grad_norm,
+                  opt):
+    """Hold one step (``params`` -> ``new_params``, its pre-clip grad norm
+    ``grad_norm``) to a psum_dp step from the same params and optimizer
+    state: the move within 1e-5 of psum_dp's relative to its size, the
+    grad norm within 1e-5 (both are sums over the vertices in another
+    order).  Returns (move, grad norm) relative differences."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.dist.steps import make_train_step
+    from repro_torch.optim.adamw import tree_leaves
+    cfg = configs.get("smollm-135m")
+    step = make_train_step(cfg, opt, TORUS_MESH, MESH_NAMES, mode="psum_dp")
+    ref, _, met = step(params, dense_state, batch)
+
+    def flat(tree):
+        return torch.cat([t.detach().reshape(-1) for t in tree_leaves(tree)])
+    p0 = flat(params)
+    d_ref, d_got = flat(ref) - p0, flat(new_params) - p0
+    del ref, p0
+    rel = float((d_got - d_ref).norm() / d_ref.norm())
+    gn_ref = float(met["grad_norm"])
+    gn_rel = abs(float(grad_norm) - gn_ref) / gn_ref
+    log(f"zero1 {tag} vs psum_dp from the same params and state: |d - "
+        f"d_psum| / |d_psum| {rel!r} (<= 1e-5), max "
+        f"{float((d_got - d_ref).abs().max())!r}; grad norm "
+        f"{float(grad_norm)!r} vs {gn_ref!r}, relative {gn_rel!r} "
+        f"(<= 1e-5)")
+    assert rel <= 1e-5, (tag, rel)
+    assert gn_rel <= 1e-5, (tag, gn_rel)
+    return rel, gn_rel
+
+
+def phase_zero1(dev):
+    """ZeRO-1, the fault runtime, checkpoints and the recovery loop at full
+    width on the 4x4 torus.  Every counted run is set to 0 just before it
+    and read just after; returns ``{run: {kernel: launches}}``.
+
+    1. ``--zero1`` for 3 steps: the first step held to psum_dp's; one
+       more step with telemetry, its allgathered rows identical.
+    2. ``--zero1 --quantize-grads`` for 2 steps: finite, the int8 wire
+       launched; one more step with telemetry, its rows identical.
+    3. Driven from Python through the striped fault runtime: 2 healthy
+       steps, a link of tree 0 killed (flip to its degraded class, mu and
+       nu resharded, there and back bit for bit), 2 steps, a flip back
+       and 1 step; every step held to a psum_dp step from the same params
+       and state; after each entry's first run a flip builds no stripe
+       binding, no fabric index tensor and no reshard index.
+    4. ``--zero1 --ckpt-dir`` for 2 steps, resumed to 3: equal to run 1 bit
+       for bit; the step-2 checkpoint restored onto entry 0's and onto
+       degraded/tree0's element maps, the second equal to
+       ``reshard_owned`` of the first.
+    5. ``--sync edst --recover`` for 2 steps (the first held to psum_dp's),
+       then the probe with a link of tree 0 masked fed to the controller
+       until it flips, and one step on the flipped entry held to psum_dp.
+    6. Seconds per warm step of zero1 and of the striped engine (run just
+       before and after it), the reduce-scatter / allgather split, the
+       time of a reshard, a checkpoint save and restore, peak memory."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.ckpt import restore_sharded, save_sharded_checkpoint
+    from repro_torch.core.collectives import (owner_element_map,
+                                              striped_tables)
+    from repro_torch.core.fault import FailureEvent
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.dist.fabric import StackedFabric
+    from repro_torch.dist.steps import (edst_spec_for_mesh,
+                                        fault_runtime_for_mesh,
+                                        make_train_step)
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.optim import AdamW, ShardedAdamW, cosine_schedule
+    from repro_torch.optim.adamw import tree_leaves
+    base = ["--arch", "smollm-135m", "--batch", "32", "--seq", "256",
+            "--log-every", "1", "--device", "cuda", "--mesh", "4,4,1"]
+    cfg = configs.get("smollm-135m")
+    stream = SyntheticLMStream(cfg.vocab, 256, 32, seed=0)
+
+    def batch(step):
+        return {"tokens": torch.as_tensor(stream.batch(step),
+                                          dtype=torch.long, device=dev)}
+
+    def flat(tree):
+        return torch.cat([t.detach().reshape(-1) for t in tree_leaves(tree)])
+
+    per_run = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def run(tag, extra, keep=False):
+        reset_all()
+        t0 = time.perf_counter()
+        res = train.main(base + extra, keep_first_step=keep)
+        torch.cuda.synchronize()
+        per_run[tag] = counts()
+        assert all(math.isfinite(v) for v in res.losses), (tag, res.losses)
+        log(f"train {tag}: losses {res.losses}, grad norms "
+            f"{res.grad_norms}, s/step {res.step_seconds}, "
+            f"{time.perf_counter() - t0!r}s in all, launches "
+            f"{per_run[tag]}")
+        return res
+
+    def rows_identical(tag, res, quantize=False):
+        """One more zero1 step from ``res``'s final state, built with
+        telemetry (the default step compares nothing): every vertex row of
+        its allgathered params must equal every other, bit for bit."""
+        step = make_train_step(cfg, AdamW(cosine_schedule(3e-4, 20, 100)),
+                               TORUS_MESH, MESH_NAMES, zero1=True,
+                               engine="striped", quantize=quantize,
+                               telemetry=True)
+        reset_all()
+        met = step(res.params, res.opt_state, batch(len(res.losses)))[2]
+        torch.cuda.synchronize()
+        per_run[tag] = counts()
+        assert met["ag_replicas_equal"], f"{tag}: allgathered rows differ"
+
+    # 1. --zero1, the first step against psum_dp's from the same init; the
+    # striped engine's steps before and after it, for the warm step times
+    striped = ["--sync", "edst", "--edst-engine", "striped", "--steps", "2"]
+    before = run("edst striped torus4x4 (before zero1)", striped)
+    z1 = run("zero1 torus4x4", ["--zero1", "--steps", "3"], keep=True)
+    after = run("edst striped torus4x4 (after zero1)", striped)
+    warm = {"striped before": before.step_seconds[1:],
+            "zero1": z1.step_seconds[1:],
+            "striped after": after.step_seconds[1:]}
+    del before, after
+    rows_identical("zero1 torus4x4 rows check", z1)
+    assert per_run["zero1 torus4x4"]["tree_combine"] > 0
+    opt3 = AdamW(cosine_schedule(3e-4, 20, 3))
+    _held_to_psum("step 1", z1.init_params, opt3.init(z1.init_params),
+                  batch(0), z1.first_step_params, z1.grad_norms[0], opt3)
+    del z1.init_params, z1.first_step_params
+    log(f"zero1: allgathered params identical on all {N_VERT} vertex rows "
+        f"(bit for bit); warm s/step in turns: {warm}")
+
+    # 2. the int8 gradient wire
+    q = run("zero1+q8 torus4x4", ["--zero1", "--quantize-grads",
+                                  "--steps", "2"])
+    c = per_run["zero1+q8 torus4x4"]
+    assert c["q8_pack_rows"] > 0 and c["q8_unpack_rows"] > 0, c
+    rows_identical("zero1+q8 torus4x4 rows check", q, quantize=True)
+    del q
+
+    # 3. a link kill through the fault runtime, driven from Python
+    rt = fault_runtime_for_mesh(TORUS_MESH, MESH_NAMES, engine="striped")
+    opt = AdamW(cosine_schedule(3e-4, 20, 100))
+    zstep = make_train_step(cfg, opt, TORUS_MESH, MESH_NAMES, zero1=True,
+                            fault_runtime=rt, telemetry=True)
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    state = ShardedAdamW(opt).init_for(params, rt, N_VERT)
+    dead = sorted(rt.entries[0].sched.trees[0].tree)[0]
+    sid_d = rt.on_failure(FailureEvent(links=frozenset({dead})),
+                          prefer="degraded").active
+    created = []
+    orig_perm = StackedFabric._perm
+
+    def spy(self, perm):
+        if perm not in self._perms:
+            created.append(perm)
+        return orig_perm(self, perm)
+
+    StackedFabric._perm = spy
+    try:
+        seen, bindings, reshards, n_created = {}, None, None, None
+        schedule = (0, 0, sid_d, sid_d, 0)
+        for i, sid in enumerate(schedule):
+            if i and sid != schedule[i - 1]:
+                frm = schedule[i - 1]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mu = rt.reshard_owned(state.mu, frm, sid, N_PARAMS)
+                torch.cuda.synchronize()
+                t_first = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                nu = rt.reshard_owned(state.nu, frm, sid, N_PARAMS)
+                torch.cuda.synchronize()
+                t_warm = time.perf_counter() - t0
+                back = rt.reshard_owned(mu, sid, frm, N_PARAMS)
+                assert torch.equal(back, state.mu), "reshard is not exact"
+                del back
+                log(f"zero1 flip {frm} -> {sid} ({rt.entries[sid].name}): "
+                    f"reshard_owned of mu {t_first!r}s (first call), of "
+                    f"nu {t_warm!r}s; there and back equals mu bit for bit")
+                state = type(state)(state.step, mu, nu)
+                del mu, nu
+            dense = _dense_state(state.step, state.mu, state.nu,
+                                 rt.zero1_element_map(N_PARAMS, sid), params)
+            tag = f"zero1 torus4x4 fault runtime step {i + 1}"
+            reset_all()
+            t0 = time.perf_counter()
+            new_params, new_state, met = zstep(params, state, batch(i), sid)
+            torch.cuda.synchronize()
+            per_run[tag] = counts()
+            assert met["ag_replicas_equal"], tag
+            log(f"{tag} on {rt.entries[sid].name}: loss "
+                f"{float(met['loss'])!r}, {time.perf_counter() - t0!r}s, "
+                f"launches {per_run[tag]}")
+            _held_to_psum(f"fault runtime step {i + 1} "
+                          f"({rt.entries[sid].name})", params, dense,
+                          batch(i), new_params, met["grad_norm"], opt)
+            del dense
+            params, state = new_params, new_state
+            seen[sid] = True
+            if bindings is not None:
+                # both entries had run: this flip and step built nothing
+                assert striped_tables.cache_info().misses == bindings, \
+                    "a flip bound a new stripe table"
+                assert len(created) == n_created, "a flip built an index"
+                assert len(rt._reshard_cache) == reshards
+            elif all(seen.get(j) for j in (0, sid_d)):
+                bindings = striped_tables.cache_info().misses
+                n_created = len(created)
+                reshards = len(rt._reshard_cache)
+        assert bindings is not None
+    finally:
+        StackedFabric._perm = orig_perm
+    log(f"zero1 fault runtime: after both entries' first runs the flips "
+        f"built 0 stripe bindings, 0 fabric index tensors, 0 reshard "
+        f"indices ({len(rt._reshard_cache)} cached)")
+
+    # the split of a zero1 sync: the reduce-scatter and the allgather
+    rs, _, ag = rt.make_zero1_sync()
+    fabric = StackedFabric(N_VERT, dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    grads = torch.randn((N_VERT, N_PARAMS), generator=g, device=dev)
+    split = {}
+    for sid in (0, sid_d):
+        rs(grads, sid, fabric)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        owned = rs(grads, sid, fabric)
+        torch.cuda.synchronize()
+        t_rs = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rows = ag(owned, sid, (N_PARAMS,), fabric)
+        torch.cuda.synchronize()
+        t_ag = time.perf_counter() - t0
+        del rows, owned
+        e = rt.entries[sid]
+        waves = len(striped_tables(e.spec, N_PARAMS, e.fractions).rs_waves)
+        split[e.name] = (t_rs, t_ag)
+        log(f"zero1 sync on {e.name}: reduce-scatter {t_rs!r}s ({waves} "
+            f"waves), allgather {t_ag!r}s")
+    del grads, params, state, new_params, new_state
+    torch.cuda.empty_cache()
+
+    # 4. checkpoints: 2 steps saved every step, resumed to 3
+    ck = ROOT / "build" / "ckpt_smoke"
+    shutil.rmtree(ck, ignore_errors=True)
+    try:
+        run("zero1 torus4x4 ckpt", ["--zero1", "--steps", "2", "--ckpt-dir",
+                                    str(ck), "--ckpt-every", "1"])
+        res = run("zero1 torus4x4 resumed", ["--zero1", "--steps", "3",
+                                             "--ckpt-dir", str(ck)])
+        assert res.start_step == 2 and len(res.losses) == 1
+        same_p = torch.equal(flat(res.params), flat(z1.params))
+        same_m = torch.equal(res.opt_state.mu, z1.opt_state.mu) and \
+            torch.equal(res.opt_state.nu, z1.opt_state.nu)
+        log(f"zero1 resumed at step 2 to 3 against the uninterrupted 3 "
+            f"steps: params equal {same_p}, moments equal {same_m}, loss "
+            f"{res.losses[0]!r} vs {z1.losses[2]!r}")
+        assert same_p and same_m, "the resumed run differs"
+        del res
+        # timing of one save and one restore, on run 1's final state
+        spec = edst_spec_for_mesh(TORUS_MESH, MESH_NAMES, engine="striped")
+        emap = owner_element_map(spec, N_PARAMS)
+        timing = ROOT / "build" / "ckpt_timing"
+        shutil.rmtree(timing, ignore_errors=True)
+        t0 = time.perf_counter()
+        save_sharded_checkpoint(str(timing), 3, z1.params, z1.opt_state,
+                                emap, N_PARAMS)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        p3, st3, _, _ = restore_sharded(str(timing), z1.params, emap)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        assert torch.equal(st3.mu, z1.opt_state.mu) and \
+            torch.equal(flat(p3), flat(z1.params))
+        del p3, st3
+        shutil.rmtree(timing, ignore_errors=True)
+        # the step-2 checkpoint onto entry 0's and degraded/tree0's maps
+        # (the resumed run kept the newest two: steps 2 and 3)
+        on0 = restore_sharded(str(ck), z1.params,
+                              rt.zero1_element_map(N_PARAMS, 0), step=2)[1]
+        on1 = restore_sharded(str(ck), z1.params,
+                              rt.zero1_element_map(N_PARAMS, 1), step=2)[1]
+        moved = rt.reshard_owned(on0.mu, 0, 1, N_PARAMS)
+        ok = torch.equal(on1.mu, moved) and torch.equal(
+            on1.nu, rt.reshard_owned(on0.nu, 0, 1, N_PARAMS))
+        log(f"checkpoint: sharded save {t_save!r}s, restore {t_restore!r}s "
+            f"(params + moments, 16 shards, CRC32 checked); the step-2 "
+            f"checkpoint restored onto {rt.entries[1].name}'s element map "
+            f"equals reshard_owned of it restored onto entry 0's: {ok}")
+        assert ok, "restore onto the degraded map differs from reshard"
+        del on0, on1, moved
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    del z1
+    torch.cuda.empty_cache()
+
+    # 5. the recovery loop: --recover, then a masked link until the flip
+    rec = run("edst torus4x4 recover", ["--sync", "edst", "--recover",
+                                        "--steps", "2"], keep=True)
+    opt2 = AdamW(cosine_schedule(3e-4, 20, 2))
+    _held_to_psum("recover step 1 (dense edst on entry 0)",
+                  rec.init_params, opt2.init(rec.init_params), batch(0),
+                  rec.first_step_params, rec.grad_norms[0], opt2)
+    del rec.init_params, rec.first_step_params
+    ctrl, mon = rec.controller, rec.monitor
+    assert ctrl.schedule_id == 0 and not ctrl.journal
+    s, d = sorted(ctrl.runtime.entries[0].sched.trees[0].tree)[0]
+    mask = [0.0 if link == (s, d) else 1.0 for link in mon.links]
+    for tick in range(2, 6):
+        dec = ctrl.observe(mon.check(tick, fault_mask=mask))
+        log(f"recover tick {tick}: link {(s, d)} masked -> {dec.action} "
+            f"(schedule {dec.schedule_id}) {dec.detail}")
+        if dec.action == "flip":
+            break
+    assert dec.action == "flip" and ctrl.schedule_id != 0
+    for row in ctrl.journal_rows():
+        log(f"recover journal: {json.dumps(row)}")
+    step_fn = make_train_step(cfg, opt2, TORUS_MESH, MESH_NAMES,
+                              mode="edst", fault_runtime=ctrl.runtime,
+                              telemetry=True)
+    tag = "edst torus4x4 recover flipped"
+    reset_all()
+    new_params, _, met = step_fn(rec.params, rec.opt_state, batch(2),
+                                 ctrl.schedule_id)
+    torch.cuda.synchronize()
+    per_run[tag] = counts()
+    log(f"{tag} on {ctrl.runtime.entry.name}: loss {float(met['loss'])!r}, "
+        f"sync_dev {met['sync_dev']!r}, launches {per_run[tag]}")
+    assert met["sync_dev"] == 0.0 and per_run[tag]["tree_combine"] > 0
+    _held_to_psum(f"recover step 3 ({ctrl.runtime.entry.name})", rec.params,
+                  rec.opt_state, batch(2), new_params, met["grad_norm"], opt2)
+    del rec, new_params
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"zero1 phase peak memory: {peak / 1e9:.2f} GB (limit 60)")
+    assert peak < 60e9, peak
+    return per_run
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1149,6 +1537,7 @@ def main():
     per_run = phase_allreduce(dev)
     per_run.update(phase_train(dev))
     per_run.update(phase_serve(dev))
+    per_run.update(phase_zero1(dev))
     launches = {name: sum(c[name] for c in per_run.values())
                 for name in counts()}
     log(f"launches over the allreduce, training and serving runs: "

@@ -159,6 +159,26 @@ def stripe_slices(x, spec: StripedCollectiveSpec, fabric, fractions=None):
     return _cut_own(_rows_in(flat, bound.sizes, bound.mrow), spec, bound)
 
 
+def owner_stripes(vec, spec: StripedCollectiveSpec, fractions=None):
+    """Every vertex's ``(k, smax)`` owner stripes of ONE replicated flat
+    vector ``vec`` (``(P,)``), stacked ``(n, k, smax)``:
+    :func:`stripe_slices` of ``vec`` expanded to n equal rows, cut
+    straight from the one copy (stripe ``(v, j)`` starts at tree j's
+    chunk offset plus ``own_off[j, v]``; past the chunk's true width it
+    is zero) without building the ``(n, P)`` rows."""
+    bound = striped_tables(spec, vec.numel(), _normalize(fractions))
+    own = torch.zeros((spec.n, spec.k, bound.smax), dtype=vec.dtype,
+                      device=vec.device)
+    chunk = 0
+    for j, s in enumerate(bound.sizes):
+        for v in range(spec.n):
+            off, length = int(bound.own_off[j, v]), int(bound.own_len[j, v])
+            width = max(0, min(length, s - off))
+            own[v, j, :width] = vec[chunk + off:chunk + off + width]
+        chunk += s
+    return own
+
+
 def tree_allgather(owned, spec: StripedCollectiveSpec, fabric, shape,
                    fractions=None, quantize: bool = False, codec=None):
     """Allgather of owner stripes: the inverse of
