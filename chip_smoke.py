@@ -26,7 +26,14 @@ striped fault runtime with a link of tree 0 killed and the moments
 resharded, checkpointed and resumed bit for bit, restored onto a
 degraded element map) and runs the recovery loop (--recover, a masked
 probe fed to the controller until it flips, a step on the flipped
-entry held to psum_dp).  Beside
+entry held to psum_dp); then closes the fault loop (every spec of these
+paths proven by the static verifier; a seeded chaos trace of flap, kill,
+burst, straggler, corruption and node loss driving training on the
+torus, each recovery's first step held to psum_dp, the node loss
+checkpointed and rescaled onto the 2x4 torus through the elastic entry
+point, and training resumed there, f32 and int8; the Roskind-Tarjan
+rescale onto all 15 survivors summing a (15, 134,515,008) payload; the
+failure drill).  Beside
 WKV6's row it logs where the kernel's time goes ("wkv6 parts": copies
 with one part of its chunk loop compiled out, and mma.sync TF32 alone).
 Every failed check raises, so the exit code is non-zero and no result
@@ -46,6 +53,8 @@ exits non-zero.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import itertools
 import json
 import math
@@ -74,6 +83,11 @@ M_ROW = N_PARAMS // 2          # one chunk row on the 4x4 torus (k=2)
 CODEC_SHAPES = ((N_VERT, M_ROW), (2 * N_VERT, M_ROW), (N_VERT, N_PARAMS))
 FABRICS = {"torus4x4": (4, 4), "ring16": (16,)}
 TORUS_MESH, MESH_NAMES = (4, 4, 1), ("pod", "data", "model")
+# after a node loss: the power-of-two sub-torus training resumes on
+# (batch 32 does not split over 15 survivors), and the seeded vertex the
+# Roskind-Tarjan rescale onto all 15 survivors drops
+RESUME_MESH, RESUME_N = (2, 4, 1), 8
+LOST_SEED = 0
 # ragged codec shapes, each at x storage offsets of 0-3 floats, with and
 # without an all-zero row and a row of one large value: m = 1, 3, 4, 15,
 # 16, 17 around one 16-byte vector, m = 1, 2, 3 mod 4 over 4-6 rows (x
@@ -192,17 +206,22 @@ def _widest_reduce_window(bound):
 
 def path_shapes():
     """What the allreduce engines hand the kernels at full width beyond
-    CODEC_SHAPES: ``(codec shapes, combine windows)``.  Pipelined S=4
-    packs, unpacks and combines one ``(16, ceil(mrow / 4))`` segment of a
-    chunk row a hop; a striped wave packs and unpacks 16 rows of its wire
+    CODEC_SHAPES: ``(codec shapes, combine windows, hop rows)``. Pipelined
+    S=4 packs, unpacks and combines one ``(16, ceil(mrow / 4))`` segment of
+    a chunk row a hop; a striped wave packs and unpacks 16 rows of its wire
     width (the widest wave of each fabric) and adds each arrival into a
     circular window of a vertex's row, at most two slices (the widest
     reduce window of each fabric, as ``(row width, [(row offset, arrival
-    offset, width), ...])``).  The zero1 path's reduce-scatter adds, for
+    offset, width), ...])``). The zero1 path's reduce-scatter adds, for
     each degraded and rebuilt entry of the torus's striped fault runtime
-    (weighted by its fractions), its widest reduce-scatter wire and
-    window."""
-    from repro_torch.core.collectives import striped_tables
+    (weighted by its fractions), its widest reduce-scatter wire and window.
+    The elastic paths add their pipelined reduce hops, ``(n, mrow)`` rows
+    (tree_combine over all n rows at once, the int8 wire's pack and unpack
+    or combine, the broadcast's pack of n * k rows): the 15-vertex runtime
+    a node loss rescales the torus onto (k = 2, rows as wide as its widest
+    weighted chunk) and the 2x4 torus training resumes on (k = 1, whole
+    gradients, every reduce hop ``sole_add``)."""
+    from repro_torch.core.collectives import chunk_sizes, striped_tables
     from repro_torch.dist.steps import fault_runtime_for_mesh
     codec = [(N_VERT, -(-M_ROW // 4)), (N_VERT, -(-N_PARAMS // 4))]
     windows = []
@@ -219,7 +238,15 @@ def path_shapes():
         window = _widest_reduce_window(bound)
         if window not in windows:
             windows.append(window)
-    return codec, windows
+    hops = []
+    for e in (rescaled_runtime().entries[0],
+              fault_runtime_for_mesh(RESUME_MESH, MESH_NAMES).entries[0]):
+        hop = (e.spec.n, max(chunk_sizes(N_PARAMS, e.fractions)))
+        hops.append(hop)
+        for shape in (hop, (hop[0] * e.k, hop[1])):
+            if shape not in codec and shape not in CODEC_SHAPES:
+                codec.append(shape)
+    return codec, windows, hops
 
 
 def phase_kernels(dev):
@@ -308,7 +335,7 @@ def phase_kernels(dev):
     # the new engines' accumulates: an S=4 segment of every vertex, and a
     # striped arrival into its circular window's slices (views at the
     # window's own storage offsets), each bit for bit the plain version
-    engine_shapes, windows = path_shapes()
+    engine_shapes, windows, hops = path_shapes()
     for rows_, m in engine_shapes[:2]:
         part = torch.randn((rows_ * m,), generator=g, device=dev)
         recv = torch.randn((1, rows_ * m), generator=g, device=dev)
@@ -328,9 +355,17 @@ def phase_kernels(dev):
                 ("tree_combine at a striped window", mrow, lo, at, width)
         del state, arrival
     torch.cuda.empty_cache()
-    log(f"kernels: tree_combine at the S=4 segments {engine_shapes[:2]} "
-        f"and the striped windows {windows} matches the plain version bit "
-        f"for bit")
+    for rows_, m in hops:
+        part = torch.randn((rows_ * m,), generator=g, device=dev)
+        recv = torch.randn((1, rows_ * m), generator=g, device=dev)
+        assert torch.equal(K.tree_combine(recv, part),
+                           R.tree_combine_ref(recv, part)), \
+            ("tree_combine at an elastic reduce hop", rows_, m)
+        del part, recv
+    torch.cuda.empty_cache()
+    log(f"kernels: tree_combine at the S=4 segments {engine_shapes[:2]}, "
+        f"the striped windows {windows} and the elastic reduce hops "
+        f"{hops} matches the plain version bit for bit")
 
     # the codec at every shape the path gives it, one shape at a time;
     # timed at the ring's, the largest and the only one of q8_combine_rows
@@ -358,6 +393,12 @@ def phase_kernels(dev):
         del x
         err = max_err(K.q8_unpack_rows(w), R.q8_unpack_rows_ref(w))
         assert err <= 1e-6, ("q8_unpack_rows", shape, err)
+        if shape == (RESUME_N, N_PARAMS):     # the 2x4 torus's sole_add
+            part = torch.randn(shape, generator=g, device=dev)
+            cerr = max_err(K.q8_combine_rows(w, part),
+                           R.q8_combine_rows_ref(w, part))
+            assert cerr <= 1e-6, ("q8_combine_rows", shape, cerr)
+            del part
         if timed_here:
             row("q8_unpack_rows", 118, err, lambda: K.q8_unpack_rows(w),
                 lambda: R.q8_unpack_rows_ref(w), None, nw + nx, nel)
@@ -1061,7 +1102,6 @@ def phase_train(dev):
     read just after it; returns ``{run: {kernel: launches}}``."""
     import torch
     from repro_torch.launch import train
-    from repro_torch.optim.adamw import tree_leaves
     base = ["--arch", "smollm-135m", "--batch", "32", "--seq", "256",
             "--log-every", "1", "--device", "cuda"]
     per_run = {}
@@ -1080,9 +1120,6 @@ def phase_train(dev):
             f"launches {per_run[tag]}")
         return res
 
-    def flat(tree):
-        return torch.cat([t.reshape(-1) for t in tree_leaves(tree)])
-
     # the first step of each engine on the torus, to hold against psum_dp's
     # (and a warm second step, for its s/step)
     firsts = {}
@@ -1092,8 +1129,9 @@ def phase_train(dev):
         res = run(tag, ["--mesh", "4,4,1", "--sync", "edst", "--edst-engine",
                         engine, "--steps", "3" if engine == "pipelined"
                         else "2"], keep=True)
-        p0 = flat(res.init_params)
-        firsts[engine] = (flat(res.first_step_params) - p0, res.grad_norms[0])
+        p0 = flat_of(res.init_params)
+        firsts[engine] = (flat_of(res.first_step_params) - p0,
+                          res.grad_norms[0])
         if engine == "pipelined":
             warm_step = min(res.step_seconds[1:])
         del res
@@ -1108,8 +1146,8 @@ def phase_train(dev):
     # by about lr * sign(g) whatever g's scale, so the grad norm (of the
     # mean gradient, before the clip) holds the sync's scale, and the move
     # relative to its own size shows a single flipped sign (~2e-4)
-    assert torch.equal(flat(psum.init_params), p0), "different init"
-    d_psum = flat(psum.params) - p0
+    assert torch.equal(flat_of(psum.init_params), p0), "different init"
+    d_psum = flat_of(psum.params) - p0
     for engine, (d_edst, gn_edst) in firsts.items():
         rel = float((d_edst - d_psum).norm() / d_psum.norm())
         gn_rel = abs(gn_edst - psum.grad_norms[0]) / psum.grad_norms[0]
@@ -1176,29 +1214,25 @@ def _dense_state(step, mu, nu, emap, params):
 
 
 def _held_to_psum(tag, params, dense_state, batch, new_params, grad_norm,
-                  opt):
+                  opt, mesh=TORUS_MESH):
     """Hold one step (``params`` -> ``new_params``, its pre-clip grad norm
-    ``grad_norm``) to a psum_dp step from the same params and optimizer
-    state: the move within 1e-5 of psum_dp's relative to its size, the
-    grad norm within 1e-5 (both are sums over the vertices in another
-    order).  Returns (move, grad norm) relative differences."""
+    ``grad_norm``) to a psum_dp step on ``mesh`` from the same params and
+    optimizer state: the move within 1e-5 of psum_dp's relative to its
+    size, the grad norm within 1e-5 (both are sums over the vertices in
+    another order).  Returns (move, grad norm) relative differences."""
     import torch
     from repro_torch import configs
     from repro_torch.dist.steps import make_train_step
-    from repro_torch.optim.adamw import tree_leaves
     cfg = configs.get("smollm-135m")
-    step = make_train_step(cfg, opt, TORUS_MESH, MESH_NAMES, mode="psum_dp")
+    step = make_train_step(cfg, opt, mesh, MESH_NAMES, mode="psum_dp")
     ref, _, met = step(params, dense_state, batch)
-
-    def flat(tree):
-        return torch.cat([t.detach().reshape(-1) for t in tree_leaves(tree)])
-    p0 = flat(params)
-    d_ref, d_got = flat(ref) - p0, flat(new_params) - p0
+    p0 = flat_of(params)
+    d_ref, d_got = flat_of(ref) - p0, flat_of(new_params) - p0
     del ref, p0
     rel = float((d_got - d_ref).norm() / d_ref.norm())
     gn_ref = float(met["grad_norm"])
     gn_rel = abs(float(grad_norm) - gn_ref) / gn_ref
-    log(f"zero1 {tag} vs psum_dp from the same params and state: |d - "
+    log(f"{tag} vs psum_dp from the same params and state: |d - "
         f"d_psum| / |d_psum| {rel!r} (<= 1e-5), max "
         f"{float((d_got - d_ref).abs().max())!r}; grad norm "
         f"{float(grad_norm)!r} vs {gn_ref!r}, relative {gn_rel!r} "
@@ -1247,7 +1281,6 @@ def phase_zero1(dev):
     from repro_torch.launch import train
     from repro_torch.models.transformer import init_lm
     from repro_torch.optim import AdamW, ShardedAdamW, cosine_schedule
-    from repro_torch.optim.adamw import tree_leaves
     base = ["--arch", "smollm-135m", "--batch", "32", "--seq", "256",
             "--log-every", "1", "--device", "cuda", "--mesh", "4,4,1"]
     cfg = configs.get("smollm-135m")
@@ -1256,9 +1289,6 @@ def phase_zero1(dev):
     def batch(step):
         return {"tokens": torch.as_tensor(stream.batch(step),
                                           dtype=torch.long, device=dev)}
-
-    def flat(tree):
-        return torch.cat([t.detach().reshape(-1) for t in tree_leaves(tree)])
 
     per_run = {}
     torch.cuda.empty_cache()
@@ -1304,7 +1334,7 @@ def phase_zero1(dev):
     rows_identical("zero1 torus4x4 rows check", z1)
     assert per_run["zero1 torus4x4"]["tree_combine"] > 0
     opt3 = AdamW(cosine_schedule(3e-4, 20, 3))
-    _held_to_psum("step 1", z1.init_params, opt3.init(z1.init_params),
+    _held_to_psum("zero1 step 1", z1.init_params, opt3.init(z1.init_params),
                   batch(0), z1.first_step_params, z1.grad_norms[0], opt3)
     del z1.init_params, z1.first_step_params
     log(f"zero1: allgathered params identical on all {N_VERT} vertex rows "
@@ -1372,7 +1402,7 @@ def phase_zero1(dev):
             log(f"{tag} on {rt.entries[sid].name}: loss "
                 f"{float(met['loss'])!r}, {time.perf_counter() - t0!r}s, "
                 f"launches {per_run[tag]}")
-            _held_to_psum(f"fault runtime step {i + 1} "
+            _held_to_psum(f"zero1 fault runtime step {i + 1} "
                           f"({rt.entries[sid].name})", params, dense,
                           batch(i), new_params, met["grad_norm"], opt)
             del dense
@@ -1430,7 +1460,7 @@ def phase_zero1(dev):
         res = run("zero1 torus4x4 resumed", ["--zero1", "--steps", "3",
                                              "--ckpt-dir", str(ck)])
         assert res.start_step == 2 and len(res.losses) == 1
-        same_p = torch.equal(flat(res.params), flat(z1.params))
+        same_p = torch.equal(flat_of(res.params), flat_of(z1.params))
         same_m = torch.equal(res.opt_state.mu, z1.opt_state.mu) and \
             torch.equal(res.opt_state.nu, z1.opt_state.nu)
         log(f"zero1 resumed at step 2 to 3 against the uninterrupted 3 "
@@ -1452,7 +1482,7 @@ def phase_zero1(dev):
         torch.cuda.synchronize()
         t_restore = time.perf_counter() - t0
         assert torch.equal(st3.mu, z1.opt_state.mu) and \
-            torch.equal(flat(p3), flat(z1.params))
+            torch.equal(flat_of(p3), flat_of(z1.params))
         del p3, st3
         shutil.rmtree(timing, ignore_errors=True)
         # the step-2 checkpoint onto entry 0's and degraded/tree0's maps
@@ -1479,7 +1509,7 @@ def phase_zero1(dev):
     rec = run("edst torus4x4 recover", ["--sync", "edst", "--recover",
                                         "--steps", "2"], keep=True)
     opt2 = AdamW(cosine_schedule(3e-4, 20, 2))
-    _held_to_psum("recover step 1 (dense edst on entry 0)",
+    _held_to_psum("zero1 recover step 1 (dense edst on entry 0)",
                   rec.init_params, opt2.init(rec.init_params), batch(0),
                   rec.first_step_params, rec.grad_norms[0], opt2)
     del rec.init_params, rec.first_step_params
@@ -1508,12 +1538,281 @@ def phase_zero1(dev):
     log(f"{tag} on {ctrl.runtime.entry.name}: loss {float(met['loss'])!r}, "
         f"sync_dev {met['sync_dev']!r}, launches {per_run[tag]}")
     assert met["sync_dev"] == 0.0 and per_run[tag]["tree_combine"] > 0
-    _held_to_psum(f"recover step 3 ({ctrl.runtime.entry.name})", rec.params,
-                  rec.opt_state, batch(2), new_params, met["grad_norm"], opt2)
+    _held_to_psum(f"zero1 recover step 3 ({ctrl.runtime.entry.name})",
+                  rec.params, rec.opt_state, batch(2), new_params,
+                  met["grad_norm"], opt2)
     del rec, new_params
     torch.cuda.empty_cache()
     peak = torch.cuda.max_memory_allocated()
     log(f"zero1 phase peak memory: {peak / 1e9:.2f} GB (limit 60)")
+    assert peak < 60e9, peak
+    return per_run
+
+
+# ---------------------------------------------------------------------------
+# the closed fault loop and the elastic rescale
+# ---------------------------------------------------------------------------
+
+def lost_node():
+    """The seeded vertex the Roskind-Tarjan rescale drops."""
+    import numpy as np
+    return int(np.random.RandomState(LOST_SEED).randint(N_VERT))
+
+
+def rescaled_runtime():
+    """The torus's dense fault runtime rescaled onto the 15 survivors of
+    ``lost_node()`` (``rescale_after_node_loss`` caches it)."""
+    from repro_torch.core.fault import FailureEvent
+    from repro_torch.dist.steps import fault_runtime_for_mesh
+    from repro_torch.launch.elastic import rescale_after_node_loss
+    torus = fault_runtime_for_mesh(TORUS_MESH, MESH_NAMES)
+    return rescale_after_node_loss(
+        torus, FailureEvent(nodes=frozenset({lost_node()})))[0]
+
+
+def flat_of(tree):
+    import torch
+    from repro_torch.optim.adamw import tree_leaves
+    return torch.cat([t.detach().reshape(-1) for t in tree_leaves(tree)])
+
+
+def phase_elastic(dev):
+    """The fault loop closed at full width: the static verifier on the
+    path's specs, the chaos loop ending in a rescale, the elastic CLI,
+    the Roskind-Tarjan rescale onto 15 survivors, and the failure drill.
+    Every counted run is set to 0 just before it and read just after;
+    returns ``{run: {kernel: launches}}``.
+
+    1. ``verify_spec(level="full")`` on every entry of the torus's
+       pipelined and striped fault runtimes, every engine's spec of the
+       ring 16, and every entry of the 15-vertex rescaled runtime and of
+       the 2x4 torus's: all ``ok``, each timed, and one ``"cheap"``
+       verify of the torus's pipelined spec.
+    2. ``elastic.chaos_loop`` on the torus (every recovery's first step
+       held to psum_dp, the corruption redo and the restore bit for bit,
+       every kind fired, no unhandled exception), ending on the 2x4
+       torus.
+    3. ``launch.elastic`` on the node-loss checkpoint (``--to-mesh
+       2,4,1``: the restored state bit for bit, k = 1), then
+       ``launch.train --mesh 2,4,1 --ckpt-dir`` for 2 steps (the first
+       held to psum_dp on the 2x4 torus, both losses the loop's own for
+       those batches bit for bit), and again with
+       ``--quantize-grads`` (the 2x4 torus's int8 reduce hops run
+       ``q8_combine``).
+    4. ``rescale_after_node_loss`` onto the 15 survivors of
+       ``lost_node()``: entry 0's allreduce of a random (15,
+       134,515,008) f32 payload and over the int8 wire, timed as
+       ``phase_allreduce`` times; a second call returns the cached
+       entries.
+    5. ``failure_drill`` (link, burst, node) on the torus runtime: every
+       ``sim_ok``, and every entry of each rung's runtime proven by the
+       static verifier.
+    Peak memory under 60 GB."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.analysis.verify import verify_spec
+    from repro_torch.core.fault import FailureEvent
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.dist.fabric import StackedFabric
+    from repro_torch.dist.steps import fault_runtime_for_mesh
+    from repro_torch.launch import elastic, train
+    from repro_torch.optim import AdamW, cosine_schedule
+    t_phase = time.perf_counter()
+    cfg = configs.get("smollm-135m")
+    per_run = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # 1. the static verifier on every spec the phase runs
+    torus = fault_runtime_for_mesh(TORUS_MESH, MESH_NAMES)
+    rt15 = rescaled_runtime()
+    rt8 = fault_runtime_for_mesh(RESUME_MESH, MESH_NAMES)
+    specs = [(f"torus4x4 pipelined {e.name}", e.spec) for e in torus.entries]
+    specs += [(f"torus4x4 striped {e.name}", e.spec) for e in
+              fault_runtime_for_mesh(TORUS_MESH, MESH_NAMES,
+                                     engine="striped").entries]
+    ring = engine_specs(FABRICS["ring16"])
+    specs += [(f"ring16 {eng}", ring[eng]) for eng in
+              ("per_tree", "fused", "pipelined", "striped")]
+    specs += [(f"rescaled15 {e.name}", e.spec) for e in rt15.entries]
+    specs += [(f"torus2x4 {e.name}", e.spec) for e in rt8.entries]
+    verify_s = []
+    for tag, spec in specs:
+        t0 = time.perf_counter()
+        rep = verify_spec(spec, level="full")
+        verify_s.append(time.perf_counter() - t0)
+        log(f"verify {tag}: {rep.summary()} in {verify_s[-1]!r}s")
+        assert rep.ok, (tag, rep.summary())
+    t0 = time.perf_counter()
+    rep = verify_spec(torus.entries[0].spec, level="cheap")
+    t_cheap = time.perf_counter() - t0
+    assert rep.ok
+    log(f"verify: {len(specs)} specs at the full level in "
+        f"{sum(verify_s)!r}s (max {max(verify_s)!r}s); the torus's "
+        f"pipelined spec at the cheap level in {t_cheap!r}s")
+
+    # 2. the closed chaos loop, ending on the 2x4 torus
+    ck = ROOT / "build" / "ckpt_elastic"
+    ck_q = ROOT / "build" / "ckpt_elastic_q8"
+    for d in (ck, ck_q):
+        shutil.rmtree(d, ignore_errors=True)
+
+    def check(tag, params, opt_state, batch, new_params, grad_norm, mesh,
+              opt):
+        return _held_to_psum(tag, params, opt_state, batch, new_params,
+                             grad_norm, opt, mesh=mesh)
+
+    try:
+        reset_all()
+        t0 = time.perf_counter()
+        res = elastic.chaos_loop(dev, cfg, 32, 256, str(ck), check, say=log)
+        torch.cuda.synchronize()
+        per_run["elastic chaos loop"] = c = counts()
+        t_loop = time.perf_counter() - t0
+        for row in res["journal"]:
+            log(f"chaos journal: {json.dumps(row)}")
+        for row in res["journal"]:
+            log(f"chaos event: {row['cause']} -> {row['action']}, MTTR "
+                f"{row['steps_degraded']} ticks, {row['mttr_s']!r}s")
+        log(f"chaos loop: {len(res['commits'])} steps committed in "
+            f"{res['ticks']} ticks, {res['steps_lost']} lost, "
+            f"{res['unhandled']} unhandled, fired {res['fired']}, ends on "
+            f"{res['mesh']}, {len(res['checks'])} recoveries held to "
+            f"psum_dp, {t_loop!r}s in all, s/step {res['step_seconds']}, "
+            f"launches {c}")
+        assert res["unhandled"] == 0, "unhandled exception in the loop"
+        assert sorted(res["fired"]) == sorted(res["kinds"]), res["fired"]
+        assert res["redo_equal"] is True, "the corruption redo differs"
+        assert res["restore_equal"] is True, "the loop's restore differs"
+        assert res["mesh"] == RESUME_MESH, res["mesh"]
+        assert len(res["checks"]) >= 5, res["checks"]
+        assert c["tree_combine"] > 0, c
+        saved = res.pop("saved")
+        s = saved["step"]
+        loop_losses = res["commits"][s:s + 2]
+        assert len(loop_losses) == 2, (s, res["commits"])
+        del res
+
+        # 3. the elastic CLI on the node-loss checkpoint, and the resume
+        shutil.copytree(ck, ck_q)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            params, opt_state, step = elastic.main(
+                ["--ckpt-dir", str(ck), "--to-mesh", "2,4,1",
+                 "--arch", "smollm-135m"])
+        printed = out.getvalue().strip()
+        exact = step == s and elastic.same_state(
+            params, opt_state, saved["params"], saved["opt_state"])
+        log(f"elastic CLI: {printed!r}; restored equal to the state saved "
+            f"bit for bit: {exact}")
+        assert exact and printed.endswith("k=1 trees"), printed
+        del saved
+        base = ["--arch", "smollm-135m", "--batch", "32", "--seq", "256",
+                "--log-every", "1", "--device", "cuda", "--mesh", "2,4,1",
+                "--sync", "edst", "--steps", str(s + 2)]
+        for tag, extra, d in (("elastic resume torus2x4", [], ck),
+                              ("elastic resume torus2x4 q8",
+                               ["--quantize-grads"], ck_q)):
+            reset_all()
+            t0 = time.perf_counter()
+            r = train.main(base + extra + ["--ckpt-dir", str(d)],
+                           keep_first_step=True)
+            torch.cuda.synchronize()
+            per_run[tag] = c = counts()
+            log(f"{tag}: resumed at {r.start_step}, losses {r.losses}, "
+                f"s/step {r.step_seconds}, {time.perf_counter() - t0!r}s, "
+                f"launches {c}")
+            assert r.start_step == s and len(r.losses) == 2
+            assert all(math.isfinite(v) for v in r.losses), r.losses
+            if extra:   # k = 1: every int8 reduce hop is a sole_add
+                assert c["q8_pack_rows"] > 0 and c["q8_combine_rows"] > 0 \
+                    and c["q8_unpack_rows"] > 0, c
+            else:
+                assert c["tree_combine"] > 0, c
+                assert r.losses == loop_losses, (r.losses, loop_losses)
+                opt = AdamW(cosine_schedule(3e-4, 20, s + 2))
+                batch = {"tokens": torch.as_tensor(
+                    SyntheticLMStream(cfg.vocab, 256, 32, seed=0).batch(s),
+                    dtype=torch.long, device=dev)}
+                _held_to_psum(f"{tag} step {s}", params, opt_state, batch,
+                              r.first_step_params, r.grad_norms[0], opt,
+                              mesh=RESUME_MESH)
+                del batch
+            del r
+        del params, opt_state
+    finally:
+        for d in (ck, ck_q):
+            shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # 4. Roskind-Tarjan onto the 15 survivors, through its allreduce
+    v = lost_node()
+    again, relabel = elastic.rescale_after_node_loss(
+        torus, FailureEvent(nodes=frozenset({v})))
+    assert again.entries is rt15.entries, "the rescale was not cached"
+    n15 = rt15.graph.n
+    log(f"rescale: vertex {v} lost, {n15} survivors ({len(relabel)} "
+        f"relabelled), {len(rt15.graph.edges)} edges, k={rt15.k}, depth "
+        f"{rt15.entry.depth}, fractions {rt15.entry.fractions}; a second "
+        f"call returns the cached entries")
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((n15, N_PARAMS), generator=g, device=dev)
+    expect = x.sum(0)
+    emax = float(expect.abs().max())
+    sabs = float(x.abs().sum(0).max())
+    fabric = StackedFabric(n15, dev)
+    for quantize in (False, True):
+        allreduce = rt15.make_allreduce(quantize=quantize)
+        secs, y = [], None
+        for i in range(2):  # the first call also grows the memory pool
+            y = None
+            torch.cuda.synchronize()
+            if i:
+                reset_all()
+            t0 = time.perf_counter()
+            y = allreduce(x, 0, fabric)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        tag = f"elastic allreduce rescaled15 {'int8' if quantize else 'f32'}"
+        per_run[tag] = c = counts()
+        err = max(float((y[r] - expect).abs().max()) for r in range(n15))
+        same = bool((y == y[0]).all())
+        tol = n15 * sabs / 254.0 if quantize else 1e-4 * emax
+        del y
+        log(f"{tag}: k={rt15.k} {secs[0]!r}s then {secs[1]!r}s, max|err| "
+            f"{err:.3g} <= {tol:.3g}, rows identical {same}, launches {c}")
+        assert err <= tol and same, (tag, err, tol, same)
+        assert c["tree_combine"] > 0, c
+        if quantize:
+            assert c["q8_pack_rows"] > 0 and c["q8_unpack_rows"] > 0, c
+        torch.cuda.empty_cache()
+    del x, expect
+    torch.cuda.empty_cache()
+
+    # 5. the failure drill, each rung's runtime proven statically
+    t0 = time.perf_counter()
+    report = elastic.failure_drill(torus, n_events=3,
+                                   kinds=("link", "burst", "node"))
+    for rec in report["events"]:
+        if rec["kind"] == "link":
+            event = FailureEvent(links=frozenset({tuple(rec["dead_link"])}))
+            rt = (torus.on_failure(event) if rec["schedule"] != "with_rebuild"
+                  else torus.with_rebuild(event))
+        elif rec["kind"] == "burst":
+            rt = torus.with_rebuild(FailureEvent(
+                links=frozenset(tuple(e) for e in rec["dead_links"])))
+        else:
+            rt = elastic.rescale_after_node_loss(torus, FailureEvent(
+                nodes=frozenset({rec["dead_node"]})))[0]
+        static = [rt.verify_entry(i, static=True)
+                  for i, e in enumerate(rt.entries) if e.k > 0]
+        rec["static_ok"] = all(static)
+        assert rec["sim_ok"] and rec["static_ok"], rec
+    log(f"failure drill ({time.perf_counter() - t0!r}s, every entry of "
+        f"each rung's runtime verified): {json.dumps(report)}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"elastic phase: {time.perf_counter() - t_phase!r}s, peak memory "
+        f"{peak / 1e9:.2f} GB (limit 60)")
     assert peak < 60e9, peak
     return per_run
 
@@ -1538,9 +1837,11 @@ def main():
     per_run.update(phase_train(dev))
     per_run.update(phase_serve(dev))
     per_run.update(phase_zero1(dev))
+    per_run.update(phase_elastic(dev))
     launches = {name: sum(c[name] for c in per_run.values())
                 for name in counts()}
-    log(f"launches over the allreduce, training and serving runs: "
+    log(f"launches over the allreduce, training, serving, zero1 and "
+        f"elastic runs: "
         f"{launches}")
     for name, n in launches.items():
         assert n > 0, f"{name} never launched on its path"

@@ -11,11 +11,12 @@ fused program (:class:`FusedAllreduceSpec`), the list-scheduled pipelined
 wave program (:class:`PipelinedAllreduceSpec`) and the striped
 reduce-scatter / allgather program (:class:`StripedCollectiveSpec`), their
 packet-level simulators, the per-wave wire bytes and the alpha-beta
-:class:`CostModel`.  The compiled programs are not handed to a static
-verifier in this package; instead the port's tests hold its tables equal,
-array for array, to the reference's verified specs.  The list scheduler's
-own self-check (:func:`_check_list_schedule`) stays, enabled by
-``verify="full"``.
+:class:`CostModel`.  Every compiler hands its freshly built program to
+the static verifier (:mod:`repro_torch.analysis.verify`, through
+:func:`verify_compiled_spec`) before caching it, at the level its
+``verify=`` flag resolves to: ``"cheap"`` by default, ``"full"`` under
+the tests.  A spec that fails raises
+:class:`~repro_torch.analysis.verify.SpecVerificationError`.
 """
 from __future__ import annotations
 
@@ -189,10 +190,25 @@ def allreduce_schedule(n: int, trees, roots=None) -> AllreduceSchedule:
     return sched
 
 
+# ---------------------------------------------------------------------------
+# compile-time static verification (repro_torch.analysis.verify)
+# ---------------------------------------------------------------------------
+#
+# Every spec compiler takes a ``verify=`` flag and hands the freshly
+# built program to the static verifier BEFORE caching it, so an illegal
+# schedule (e.g. a schedule-search candidate with two trees on one link,
+# or a rescale's repack of an irregular residual fabric) is rejected at
+# build time, not discovered as wrong sums at step time.  ``verify=None``
+# resolves through the ``REPRO_VERIFY_SPECS`` environment variable
+# ("off" | "cheap" | "full"); production defaults to the O(messages)
+# cheap assert mode, the tests export REPRO_VERIFY_SPECS=full (see
+# tests/conftest.py).
+
+
 def _resolve_verify(verify) -> str:
     """``verify`` level: ``None`` reads ``REPRO_VERIFY_SPECS`` (default
-    ``"cheap"``), ``True``/``False`` mean ``"full"``/``"off"``.  Only
-    ``"full"`` changes anything here: it turns on the list scheduler's
+    ``"cheap"``); ``True``/``False`` mean
+    ``"full"``/``"off"``.  ``"full"`` also turns on the list scheduler's
     self-check."""
     if verify is None:
         mode = os.environ.get("REPRO_VERIFY_SPECS", "cheap")
@@ -207,6 +223,20 @@ def _resolve_verify(verify) -> str:
             f"verify must be one of off/cheap/full (or bool/None), "
             f"got {mode!r}")
     return mode
+
+
+def verify_compiled_spec(spec, verify=None, context: str = ""):
+    """Run the static verifier (:mod:`repro_torch.analysis.verify`) on a
+    compiled spec at the resolved level; raises
+    :class:`repro_torch.analysis.verify.SpecVerificationError` on
+    violations.  Imported lazily: the verifier itself imports this
+    module."""
+    mode = _resolve_verify(verify)
+    if mode == "off":
+        return spec
+    from ..analysis.verify import assert_valid
+    assert_valid(spec, level=mode, context=context)
+    return spec
 
 
 # ---------------------------------------------------------------------------
@@ -340,11 +370,12 @@ def fused_spec_from_schedule(sched: AllreduceSchedule,
     """Compile an :class:`AllreduceSchedule` into the round-major
     :class:`FusedAllreduceSpec`.  Compiles are cached by (fabric, rooted
     trees, axes): repeated calls for the same topology return the *same*
-    object.  ``verify`` is accepted for the reference's signature (the
-    round split needs no self-check).  ``schedule`` picks the
-    wave-assembly strategy (:data:`SCHEDULES`); non-greedy strategies append their tag (and
-    ``seed``, for search) to the spec key, so each strategy keeps its own
-    stable spec identity."""
+    object.  Fresh compiles are statically verified per ``verify=`` (see
+    :func:`verify_compiled_spec`) before entering the cache; cache hits
+    re-verify only on an explicit truthy ``verify``.  ``schedule`` picks
+    the wave-assembly strategy (:data:`SCHEDULES`); non-greedy strategies
+    append their tag (and ``seed``, for search) to the spec key, so each
+    strategy keeps its own stable spec identity."""
     axes = tuple(axis_names)
     routed = _routed_spec("fused", sched, axes, verify, schedule, seed)
     if routed is not None:
@@ -352,6 +383,8 @@ def fused_spec_from_schedule(sched: AllreduceSchedule,
     key = _sched_key(sched, axes)
     hit = _FUSED_CACHE.get(key)
     if hit is not None:
+        if verify:
+            verify_compiled_spec(hit, verify, "fused_spec_from_schedule")
         return hit
     phases = {}
     for phase in ("reduce", "bcast"):
@@ -364,6 +397,7 @@ def fused_spec_from_schedule(sched: AllreduceSchedule,
                               depth=sched.depth,
                               reduce_rounds=phases["reduce"],
                               bcast_rounds=phases["bcast"], key=key)
+    verify_compiled_spec(spec, verify, "fused_spec_from_schedule")
     _FUSED_CACHE[key] = spec
     return spec
 
@@ -636,10 +670,11 @@ def pipelined_spec_from_schedule(sched: AllreduceSchedule,
     """Compile an :class:`AllreduceSchedule` into the list-scheduled
     :class:`PipelinedAllreduceSpec`.  Cached by (fabric, rooted trees,
     axes) like :func:`fused_spec_from_schedule`: recompiles return the
-    identical object.  ``verify="full"`` self-checks the list
-    scheduler's waves.  ``schedule`` picks the
-    wave-assembly strategy (:data:`SCHEDULES`); non-greedy strategies
-    carry their own spec-key tag."""
+    identical object.  Fresh compiles are statically verified per
+    ``verify=`` before caching (full level also self-checks the list
+    scheduler's waves).  ``schedule`` picks the wave-assembly strategy
+    (:data:`SCHEDULES`); non-greedy strategies carry their own spec-key
+    tag."""
     axes = tuple(axis_names)
     routed = _routed_spec("pipelined", sched, axes, verify, schedule, seed)
     if routed is not None:
@@ -647,6 +682,8 @@ def pipelined_spec_from_schedule(sched: AllreduceSchedule,
     key = (*_sched_key(sched, axes), "pipelined")
     hit = _PIPE_CACHE.get(key)
     if hit is not None:
+        if verify:
+            verify_compiled_spec(hit, verify, "pipelined_spec_from_schedule")
         return hit
     deep = _resolve_verify(verify) == "full"
     msgs, deps = _message_dag(sched)
@@ -662,6 +699,7 @@ def pipelined_spec_from_schedule(sched: AllreduceSchedule,
     spec = PipelinedAllreduceSpec(n=n, k=k, axes=axes, depth=sched.depth,
                                   waves=waves, q8_waves=tuple(red + bc),
                                   q8_boundary=len(red), key=key)
+    verify_compiled_spec(spec, verify, "pipelined_spec_from_schedule")
     _PIPE_CACHE[key] = spec
     return spec
 
@@ -986,9 +1024,11 @@ def striped_spec_from_schedule(sched: AllreduceSchedule,
     """Compile an :class:`AllreduceSchedule` into the striped
     reduce-scatter / allgather :class:`StripedCollectiveSpec`.  Cached by
     (fabric, rooted trees, axes) like the other spec compilers:
-    recompiles return the identical object.  ``verify="full"``
-    self-checks the list scheduler's waves.  ``schedule`` picks the wave-assembly strategy (:data:`SCHEDULES`);
-    non-greedy strategies carry their own spec-key tag."""
+    recompiles return the identical object.  Fresh compiles are
+    statically verified per ``verify=`` before caching (full level also
+    self-checks the list scheduler's waves).  ``schedule`` picks the
+    wave-assembly strategy (:data:`SCHEDULES`); non-greedy strategies
+    carry their own spec-key tag."""
     axes = tuple(axis_names)
     routed = _routed_spec("striped", sched, axes, verify, schedule, seed)
     if routed is not None:
@@ -996,6 +1036,8 @@ def striped_spec_from_schedule(sched: AllreduceSchedule,
     key = (*_sched_key(sched, axes), "striped")
     hit = _STRIPED_CACHE.get(key)
     if hit is not None:
+        if verify:
+            verify_compiled_spec(hit, verify, "striped_spec_from_schedule")
         return hit
     deep = _resolve_verify(verify) == "full"
     trees = tuple(_striped_tree(sched.n, ts) for ts in sched.trees)
@@ -1012,6 +1054,7 @@ def striped_spec_from_schedule(sched: AllreduceSchedule,
         n=n, k=sched.k, axes=axes, depth=sched.depth, trees=trees,
         waves=waves_of(), rs_waves=waves_of(_RS_KINDS),
         ag_waves=waves_of(frozenset({AG_UP, AG_DOWN})), key=key)
+    verify_compiled_spec(spec, verify, "striped_spec_from_schedule")
     _STRIPED_CACHE[key] = spec
     return spec
 

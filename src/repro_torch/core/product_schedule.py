@@ -16,9 +16,9 @@ structure:
     ``sp.cross_edge``, never touching ``sp.product()``.  A/B outputs are
     exact spanning trees by edge count ((ns-1)*nn bundle edges + (nn-1)
     supernode edges = N-1), so tree-ification and the per-tree
-    spanning/disjointness scan are skipped (the reference vets the
-    compiled program with its static verifier; the port's tests hold
-    these programs equal to the reference's, array for array).
+    spanning/disjointness scan are skipped -- the *compiled program* is
+    vetted by the static verifier instead
+    (``repro_torch.analysis.verify``).
   * :func:`composed_allreduce_schedule` -- an ordinary
     :class:`~repro_torch.core.collectives.AllreduceSchedule` over those trees
     (depth-minimizing CSR tree-center roots), memoized on
@@ -36,7 +36,7 @@ structure:
     probe finds the first ppermute-legal (and, for striped,
     op-homogeneous) wave.  Every dependency lands in a strictly earlier
     wave, so the emitted order preserves happens-before -- the property
-    the reference's full-level verifier re-checks.  Total cost is near-linear in
+    the full-level verifier re-checks.  Total cost is near-linear in
     messages, replacing the O(waves x messages) greedy ready-scan.
 """
 from __future__ import annotations
@@ -51,7 +51,7 @@ from .collectives import (BCAST, REDUCE, RS_UP, RS_DOWN, AG_UP, AG_DOWN,
                           PipelinedAllreduceSpec, StripedCollectiveSpec,
                           StripedWave, _pipe_wave, _sched_key, _striped_op,
                           _striped_tree, _striped_wave, allreduce_schedule,
-                          fused_spec_from_schedule)
+                          fused_spec_from_schedule, verify_compiled_spec)
 from .edst_star import StarEDSTs, star_edsts
 from .factor_edsts import EDSTSet, edsts_for
 from .star import StarProduct
@@ -229,6 +229,8 @@ def asap_pipelined_spec(sched: AllreduceSchedule, axis_names,
     key = (*_sched_key(sched, axes), "pipelined", "composed")
     hit = _PIPE_CACHE.get(key)
     if hit is not None:
+        if verify:
+            verify_compiled_spec(hit, verify, "asap_pipelined_spec")
         return hit
     msgs, pri, q8_pri = _pipe_asap(sched)
     n, k = sched.n, sched.k
@@ -244,6 +246,7 @@ def asap_pipelined_spec(sched: AllreduceSchedule, axis_names,
     spec = PipelinedAllreduceSpec(n=n, k=k, axes=axes, depth=sched.depth,
                                   waves=waves, q8_waves=tuple(red + bc),
                                   q8_boundary=len(red), key=key)
+    verify_compiled_spec(spec, verify, "asap_pipelined_spec")
     _PIPE_CACHE[key] = spec
     return spec
 
@@ -473,6 +476,8 @@ def asap_striped_spec(sched: AllreduceSchedule, axis_names,
     key = (*_sched_key(sched, axes), "striped", "composed")
     hit = _STRIPED_CACHE.get(key)
     if hit is not None:
+        if verify:
+            verify_compiled_spec(hit, verify, "asap_striped_spec")
         return hit
     trees = tuple(_striped_tree(sched.n, ts) for ts in sched.trees)
     msgs, pri, solo_pri, ops, cols = _striped_asap(sched, trees)
@@ -499,6 +504,7 @@ def asap_striped_spec(sched: AllreduceSchedule, axis_names,
         rs_waves=waves_of(np.nonzero(kind_a < AG_UP)[0], solo_a, "rs"),
         ag_waves=waves_of(np.nonzero(kind_a >= AG_UP)[0], solo_a, "ag"),
         key=key)
+    verify_compiled_spec(spec, verify, "asap_striped_spec")
     _STRIPED_CACHE[key] = spec
     return spec
 

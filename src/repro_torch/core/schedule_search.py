@@ -22,9 +22,8 @@ hillclimbs that space:
   * **acceptance** is strict improvement only; otherwise the *greedy spec
     object itself* is returned, so a search that finds nothing keeps
     every cache keyed to the identical incumbent;
-  * at ``verify="full"`` every candidate's list schedule self-checks
-    (:func:`~repro_torch.core.collectives._check_list_schedule`), so an
-    illegal wave cannot replace a legal incumbent.
+  * every winner is re-verified (:func:`verify_compiled_spec`) before it
+    is cached -- an illegal candidate cannot replace a legal incumbent.
 
 Search results are memoized per (schedule key, engine, seed); the whole
 pass is deterministic for a fixed seed.  Root search
@@ -48,7 +47,7 @@ from .collectives import (AG_DOWN, AG_UP, BCAST, REDUCE, RS_DOWN, RS_UP,
                           PipelinedAllreduceSpec, StripedCollectiveSpec,
                           fused_spec_from_schedule,
                           pipelined_spec_from_schedule,
-                          striped_spec_from_schedule)
+                          striped_spec_from_schedule, verify_compiled_spec)
 from .graph import tree_depth_levels
 
 #: payload the striped makespan is scored at (64 MiB of f32 -- large
@@ -122,6 +121,8 @@ def search_pipelined_spec(sched: AllreduceSchedule, axis_names,
     key = (*_sched_key(sched, axes), "pipelined", "search", seed)
     hit = _SEARCH_CACHE.get(key)
     if hit is not None:
+        if verify:
+            verify_compiled_spec(hit, verify, "search_pipelined_spec")
         return hit
     greedy = pipelined_spec_from_schedule(sched, axes, verify)
     msgs, deps = _message_dag(sched)
@@ -149,6 +150,7 @@ def search_pipelined_spec(sched: AllreduceSchedule, axis_names,
     spec = PipelinedAllreduceSpec(n=n, k=k, axes=axes, depth=sched.depth,
                                   waves=waves, q8_waves=q8,
                                   q8_boundary=len(red), key=key)
+    verify_compiled_spec(spec, verify, "search_pipelined_spec")
     _SEARCH_CACHE[key] = spec
     return spec
 
@@ -171,6 +173,8 @@ def search_striped_spec(sched: AllreduceSchedule, axis_names,
     key = (*_sched_key(sched, axes), "striped", "search", seed)
     hit = _SEARCH_CACHE.get(key)
     if hit is not None:
+        if verify:
+            verify_compiled_spec(hit, verify, "search_striped_spec")
         return hit
     greedy = striped_spec_from_schedule(sched, axes, verify)
     n, k = sched.n, sched.k
@@ -215,6 +219,7 @@ def search_striped_spec(sched: AllreduceSchedule, axis_names,
         n=n, k=k, axes=axes, depth=sched.depth, trees=trees,
         waves=best.waves, rs_waves=best.rs_waves, ag_waves=best.ag_waves,
         key=key)
+    verify_compiled_spec(spec, verify, "search_striped_spec")
     _SEARCH_CACHE[key] = spec
     return spec
 
@@ -230,6 +235,8 @@ def search_fused_spec(sched: AllreduceSchedule, axis_names,
     key = (*_sched_key(sched, axes), "fused", "search", seed)
     hit = _SEARCH_CACHE.get(key)
     if hit is not None:
+        if verify:
+            verify_compiled_spec(hit, verify, "search_fused_spec")
         return hit
     greedy = fused_spec_from_schedule(sched, axes, verify)
     rng = np.random.RandomState(seed)
@@ -260,5 +267,6 @@ def search_fused_spec(sched: AllreduceSchedule, axis_names,
                               depth=sched.depth,
                               reduce_rounds=best["reduce"],
                               bcast_rounds=best["bcast"], key=key)
+    verify_compiled_spec(spec, verify, "search_fused_spec")
     _SEARCH_CACHE[key] = spec
     return spec

@@ -42,7 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..analysis.verify import check_schedule_id
+from ..analysis.verify import check_schedule_id, verify_spec
 from ..core.collectives import (AllreduceSchedule, CostModel,
                                 FusedAllreduceSpec, PipelinedAllreduceSpec,
                                 StripedCollectiveSpec, allreduce_schedule,
@@ -62,8 +62,9 @@ from .tree_allreduce import fused_tree_allreduce, pipelined_tree_allreduce
 
 class NoScheduleError(RuntimeError):
     """No precompiled schedule survives the failure; a dynamic rebuild
-    (``with_rebuild``) or an elastic rescale is required before the
-    collective can resume."""
+    (``with_rebuild``) or an elastic rescale
+    (``repro_torch.launch.elastic``) is required before the collective
+    can resume."""
 
 
 # ---------------------------------------------------------------------------
@@ -224,8 +225,8 @@ class FaultAwareAllreduce:
         precompiled program survives (multi-tree wipeout, node loss)."""
         if event.nodes:
             raise NoScheduleError(
-                "node loss changes the fabric; rescale on the surviving "
-                "vertices (launch/elastic.py is not yet ported)")
+                "node loss changes the fabric; rescale via "
+                "repro_torch.launch.elastic")
         valid = self.valid_ids(event)
         if not valid:
             raise NoScheduleError(
@@ -247,8 +248,8 @@ class FaultAwareAllreduce:
         runtime."""
         if event.nodes:
             raise NoScheduleError(
-                "node loss changes the fabric; rescale on the surviving "
-                "vertices (launch/elastic.py is not yet ported)")
+                "node loss changes the fabric; rescale via "
+                "repro_torch.launch.elastic")
         dead = event.dead_links(self.graph)
         residual = self.graph.without_edges(dead)
         if not residual.is_connected():
@@ -466,13 +467,17 @@ class FaultAwareAllreduce:
         return nbytes / cm.edst_tree_allreduce(nbytes, e.sched)
 
     def verify_entry(self, entry_id: int, d: int | None = None,
-                     seed: int = 0) -> bool:
-        """Correctness of one precompiled program, replayed through the
-        numpy packet simulator.  (The reference's ``static=True`` mode
-        runs its static verifier, which the port does not have yet.)"""
+                     seed: int = 0, static: bool = False) -> bool:
+        """Correctness of one precompiled program.  ``static=True`` runs
+        the O(messages) static verifier (:mod:`repro_torch.analysis.verify`)
+        on the entry's compiled spec -- no simulation, the mode for large
+        fabrics; the default replays the schedule through the numpy
+        packet simulator."""
         e = self.entries[self.gate(entry_id)]
         if e.sched is None:
             return False
+        if static:
+            return verify_spec(e.spec, level="full").ok
         d = d or 8 * e.k
         vals = np.random.RandomState(seed).randn(self.graph.n, d)
         return simulate_allreduce(e.sched, vals).ok

@@ -64,12 +64,14 @@ def dp_extent(mesh_shape, axis_names) -> int:
                         if a in DATA_AXES] or [1]))
 
 
-def dp_fabric_for_mesh(mesh_shape, axis_names):
+def dp_fabric_for_mesh(mesh_shape, axis_names, dp_torus_shape=None):
     """The data-parallel fabric of a device mesh: (star_product, dp_axis_names).
 
     The DP fabric is the sub-mesh spanned by the ("pod", "data") axes; its
     physical graph is taken to be the torus over those extents (row-major
     vertex ids = flattened DP rank, matching ``device_topology``).
+    ``dp_torus_shape`` overrides the physical shape when the logical mesh
+    flattens it (product must equal the DP extent).
     """
     axis_names = tuple(axis_names)
     dims = [int(s) for a, s in zip(axis_names, mesh_shape)
@@ -78,12 +80,17 @@ def dp_fabric_for_mesh(mesh_shape, axis_names):
     n = int(np.prod(dims)) if dims else 1
     if n <= 1:
         raise ValueError("mesh has no data-parallel extent to sync over")
-    return topo.device_topology(tuple(d for d in dims if d > 1)), names
+    phys = tuple(int(d) for d in dp_torus_shape) if dp_torus_shape \
+        else tuple(d for d in dims if d > 1)
+    if int(np.prod(phys)) != n:
+        raise ValueError(f"dp_torus_shape {phys} != DP extent {n}")
+    return topo.device_topology(phys), names
 
 
 @functools.lru_cache(maxsize=None)
-def _edst_spec_cached(mesh_shape, axis_names, engine, schedule):
-    sp, names = dp_fabric_for_mesh(mesh_shape, axis_names)
+def _edst_spec_cached(mesh_shape, axis_names, dp_torus_shape, engine,
+                      schedule):
+    sp, names = dp_fabric_for_mesh(mesh_shape, axis_names, dp_torus_shape)
     if schedule == "composed":
         # the compositional path never materializes the flat message DAG
         from ..core.product_schedule import composed_spec_for_star
@@ -97,11 +104,12 @@ def _edst_spec_cached(mesh_shape, axis_names, engine, schedule):
 
 
 def edst_spec_for_mesh(
-        mesh_shape, axis_names, engine: str = "pipelined",
-        schedule: str = "greedy"
+        mesh_shape, axis_names, dp_torus_shape=None,
+        engine: str = "pipelined", schedule: str = "greedy"
 ) -> PipelinedAllreduceSpec | FusedAllreduceSpec | StripedCollectiveSpec:
     """EDST allreduce spec for the data-parallel fabric of a device mesh
-    (see :func:`dp_fabric_for_mesh`).  ``engine`` picks the compiled form:
+    (see :func:`dp_fabric_for_mesh`, and its ``dp_torus_shape``).
+    ``engine`` picks the compiled form:
     ``"pipelined"`` (default: the list-scheduled segment-streaming wave
     program), ``"striped"`` (the reduce-scatter/allgather program of
     :mod:`repro_torch.dist.striped`: stripe-sized wires) or ``"fused"``
@@ -109,11 +117,14 @@ def edst_spec_for_mesh(
     strategy (``repro_torch.core.collectives.SCHEDULES``): ``"greedy"``
     list scheduling, ``"search"`` the seeded hillclimb, or ``"composed"``
     the compositional product-schedule compiler.  Cached by (mesh, axes,
-    engine, schedule): repeated calls return the same object."""
+    torus shape, engine, schedule): repeated calls, an elastic rescale's
+    among them, return the same object."""
     if engine not in ENGINES:
         raise ValueError(f"engine {engine!r} not in {ENGINES}")
-    return _edst_spec_cached(tuple(mesh_shape), tuple(axis_names), engine,
-                             schedule)
+    return _edst_spec_cached(
+        tuple(mesh_shape), tuple(axis_names),
+        None if dp_torus_shape is None else tuple(dp_torus_shape), engine,
+        schedule)
 
 
 def _unflatten(flat, like):
@@ -135,15 +146,16 @@ def _unflatten(flat, like):
     return walk(like)
 
 
-def fault_runtime_for_mesh(mesh_shape, axis_names, engine: str = "pipelined"
-                           ) -> FaultAwareAllreduce:
+def fault_runtime_for_mesh(mesh_shape, axis_names, dp_torus_shape=None,
+                           engine: str = "pipelined") -> FaultAwareAllreduce:
     """Elastic EDST runtime (precompiled degraded/rebuilt failure-class
     schedules) for the data-parallel fabric of a device mesh.  Pass it to
     ``make_train_step(mode="edst", fault_runtime=...)`` and feed its
     schedule ids to the step's ``schedule_id`` argument.  ``engine``
     selects the compiled form of every failure class (striped classes
-    re-stripe ownership over the surviving trees)."""
-    sp, names = dp_fabric_for_mesh(mesh_shape, axis_names)
+    re-stripe ownership over the surviving trees); ``dp_torus_shape`` as
+    in :func:`dp_fabric_for_mesh`."""
+    sp, names = dp_fabric_for_mesh(mesh_shape, axis_names, dp_torus_shape)
     return FaultAwareAllreduce.build(sp.product(), star_edsts(sp).trees,
                                      names, engine=engine)
 
@@ -257,7 +269,8 @@ def make_train_step(cfg, opt, mesh_shape, axis_names, mode: str = "edst",
             else:
                 fault_sync = fault_runtime.make_allreduce(quantize, segments)
         else:
-            spec = edst_spec_for_mesh(mesh_shape, axis_names, engine=engine)
+            spec = edst_spec_for_mesh(mesh_shape, axis_names,
+                                      engine=engine)
             if zero1:
                 # the fault runtime's three primitives on the one healthy
                 # spec (sid ignored); params allgather full precision

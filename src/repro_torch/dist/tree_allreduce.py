@@ -58,7 +58,7 @@ import torch.nn.functional as F
 from ..core.collectives import (CostModel, FusedAllreduceSpec,
                                 PipelinedAllreduceSpec,
                                 StripedCollectiveSpec, chunk_sizes,
-                                wave_wire_bytes)
+                                verify_compiled_spec, wave_wire_bytes)
 from ..kernels.tree_combine.ops import (combine, q8_combine_rows,
                                         q8_pack_rows, q8_unpack_rows)
 from ..telemetry import metrics as _metrics
@@ -130,11 +130,14 @@ def _dst_tables(rounds, n: int):
     return tuple(out)
 
 
-def spec_from_schedule(sched, axis_names) -> TreeAllreduceSpec:
+def spec_from_schedule(sched, axis_names, verify=None) -> TreeAllreduceSpec:
     """Compile an :class:`repro_torch.core.collectives.AllreduceSchedule`
     into a static per-tree spec bound to the given mesh axis names.  (The
     fused, pipelined and striped forms come from
-    ``repro_torch.core.collectives``.)"""
+    ``repro_torch.core.collectives``.)  Like those compilers, the fresh
+    spec is statically verified per ``verify=``
+    (``repro_torch.analysis.verify``; level resolved from
+    ``REPRO_VERIFY_SPECS``) before being returned."""
     trees = []
     for ts in sched.trees:
         bcast = _compile_rounds(ts.bcast_rounds)
@@ -142,8 +145,9 @@ def spec_from_schedule(sched, axis_names) -> TreeAllreduceSpec:
                                  reduce_rounds=_compile_rounds(ts.reduce_rounds),
                                  bcast_rounds=bcast,
                                  bcast_dst=_dst_tables(bcast, sched.n)))
-    return TreeAllreduceSpec(n=sched.n, axes=tuple(axis_names),
+    spec = TreeAllreduceSpec(n=sched.n, axes=tuple(axis_names),
                              trees=tuple(trees))
+    return verify_compiled_spec(spec, verify, "spec_from_schedule")
 
 
 # ---------------------------------------------------------------------------

@@ -13,8 +13,9 @@ checkpoint there, saves every ``--ckpt-every`` steps and at the end
 (sharded under ``--zero1``).  ``--recover`` closes the fault loop: each
 step runs on the fault runtime's active schedule, the fabric is probed,
 and the recovery controller retries, flips or rebuilds; a node loss
-checkpoints and stops.  ``--profile-dir`` writes a ``torch.profiler``
-trace of the loop (Chrome trace JSON; every step is a ``train/step{i}``
+checkpoints and stops, naming the relaunch onto the survivors through
+:mod:`repro_torch.launch.elastic`.  ``--profile-dir`` writes a
+``torch.profiler`` trace of the loop (Chrome trace JSON; every step is a ``train/step{i}``
 range and every sync wave an ``edst/t*/w*/op`` range), ``--metrics-out``
 the metrics registry as JSON, ``--journal-out`` the recovery journal as
 JSONL.
@@ -112,7 +113,8 @@ def parser() -> argparse.ArgumentParser:
                          "and recover in place -- retry on flaps, "
                          "schedule-id flip on link kills, background "
                          "rebuild on bursts; node loss checkpoints and "
-                         "stops")
+                         "stops for a relaunch through "
+                         "repro_torch.launch.elastic")
     ap.add_argument("--journal-out", default=None,
                     help="append the recovery journal to this JSONL file "
                          "as transitions happen (--recover)")
@@ -232,10 +234,20 @@ def _recover_tick(run: Run, step: int, t1: float, metrics):
         checksum_dev=float(metrics.get("sync_dev", 0.0)))
     dec = ctrl.observe(report)
     if dec.action == "rescale" and ctrl.state == "stalled":
-        print(f"[train] node loss at step {step} "
-              f"({dec.detail.get('nodes')}); rescaling onto the surviving "
-              "vertices needs launch/elastic.py, which is not yet ported: "
-              "checkpoint and stop")
+        # a lost vertex needs a NEW fabric: checkpoint and hand off to
+        # repro_torch.launch.elastic on the survivors
+        from repro_torch.launch.elastic import survivor_mesh
+        nodes = dec.detail.get("nodes") or ()
+        mesh = ",".join(map(str, survivor_mesh(
+            ctrl.runtime.graph.n - len(nodes))))
+        ck = run.args.ckpt_dir or "DIR"
+        print(f"[train] node loss at step {step} ({list(nodes)}); "
+              + ("checkpoint saved" if run.args.ckpt_dir
+                 else "no --ckpt-dir, nothing saved")
+              + " -- relaunch on the surviving vertices: python -m "
+              f"repro_torch.launch.elastic --ckpt-dir {ck} --to-mesh "
+              f"{mesh}, then python -m repro_torch.launch.train --mesh "
+              f"{mesh} --ckpt-dir {ck}")
         return "stop"
     if dec.action == "none":
         return None
@@ -262,8 +274,9 @@ def main(argv=None, keep_first_step: bool = False) -> TrainResult:
         args.sync, args.edst_engine = "edst", "striped"
     if args.recover and (args.sync != "edst" or args.zero1):
         ap.error("--recover requires --sync edst without --zero1 (the "
-                 "reference runs the zero1 recovery loop in its chaos "
-                 "harness, which is not yet ported)")
+                 "reference runs the zero1 recovery loop in its "
+                 "benchmarks/chaos_soak.py, which the port does not "
+                 "carry)")
     if args.recover and args.quantize_grads and args.edst_engine == "striped":
         ap.error("--recover refuses --quantize-grads with --edst-engine "
                  "striped: that engine's int8 allgather re-codes every hop, "
