@@ -33,7 +33,12 @@ torus, each recovery's first step held to psum_dp, the node loss
 checkpointed and rescaled onto the 2x4 torus through the elastic entry
 point, and training resumed there, f32 and int8; the Roskind-Tarjan
 rescale onto all 15 survivors summing a (15, 134,515,008) payload; the
-failure drill).  Beside
+failure drill); last, the wave-level telemetry (every wave of the 4x4
+and 2x8 tori's pipelined and striped programs timed on the card at 4 MiB
+and at the full gradient beside the CostModel's prediction, the fitted
+``cuda`` row, S = 1, 2, 4, 8 against ``segments="auto"``, a measured
+trace and a ``--trace-out`` trace validated, no wave range without a
+profiler, and the ranges' cost under one).  Beside
 WKV6's row it logs where the kernel's time goes ("wkv6 parts": copies
 with one part of its chunk loop compiled out, and mma.sync TF32 alone).
 Every failed check raises, so the exit code is non-zero and no result
@@ -42,8 +47,9 @@ line is printed.  The last line is
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 preceded by one JSON line ``{"kernels": [...]}`` (launches summed over
-the runs of each kernel's path, an allreduce, training or serving, each
-run counted from 0 just before it and read just after it; times from
+the runs of each kernel's path, an allreduce, training, serving or the
+wave-by-wave timer, each run counted from 0 just before it and read just
+after it; times from
 CUDA events in
 this run, each the median of 5 rounds of about 20 ms of back-to-back
 calls) and the card's name and power limit from nvidia-smi.
@@ -82,6 +88,11 @@ M_ROW = N_PARAMS // 2          # one chunk row on the 4x4 torus (k=2)
 # adds the S=4 segments and the striped wires.
 CODEC_SHAPES = ((N_VERT, M_ROW), (2 * N_VERT, M_ROW), (N_VERT, N_PARAMS))
 FABRICS = {"torus4x4": (4, 4), "ring16": (16,)}
+# the reference telemetry bench's fabrics (benchmarks/telemetry_bench.py
+# FABRICS) and payloads: its DEFAULT_ELEMS f32 (4 MiB a vertex) and the
+# full smollm-135m gradient
+TELEMETRY_TORI = {"torus4x4": (4, 4), "torus2x8": (2, 8)}
+TELEMETRY_NBYTES = (4 << 20, 4 * N_PARAMS)
 TORUS_MESH, MESH_NAMES = (4, 4, 1), ("pod", "data", "model")
 # after a node loss: the power-of-two sub-torus training resumes on
 # (batch 32 does not split over 15 survivors), and the seeded vertex the
@@ -220,7 +231,11 @@ def path_shapes():
     or combine, the broadcast's pack of n * k rows): the 15-vertex runtime
     a node loss rescales the torus onto (k = 2, rows as wide as its widest
     weighted chunk) and the 2x4 torus training resumes on (k = 1, whole
-    gradients, every reduce hop ``sole_add``)."""
+    gradients, every reduce hop ``sole_add``). The telemetry path adds,
+    on each of its tori at each of its payloads, the pipelined S=1 reduce
+    hop (all 16 chunk rows in one combine: on the 2x8 torus (k = 1) at
+    full width 16 x 134,515,008 elements, more than 2^31) and the striped
+    program's widest reduce window."""
     from repro_torch.core.collectives import chunk_sizes, striped_tables
     from repro_torch.dist.steps import fault_runtime_for_mesh
     codec = [(N_VERT, -(-M_ROW // 4)), (N_VERT, -(-N_PARAMS // 4))]
@@ -246,6 +261,17 @@ def path_shapes():
         for shape in (hop, (hop[0] * e.k, hop[1])):
             if shape not in codec and shape not in CODEC_SHAPES:
                 codec.append(shape)
+    for dims in TELEMETRY_TORI.values():
+        specs = engine_specs(dims)
+        for nbytes in TELEMETRY_NBYTES:
+            size = nbytes // 4
+            hop = (N_VERT, -(-size // specs["pipelined"].k))
+            if hop != (N_VERT, M_ROW) and hop not in hops:  # M_ROW: timed
+                hops.append(hop)
+            window = _widest_reduce_window(
+                striped_tables(specs["striped"], size))
+            if window not in windows:
+                windows.append(window)
     return codec, windows, hops
 
 
@@ -360,12 +386,12 @@ def phase_kernels(dev):
         recv = torch.randn((1, rows_ * m), generator=g, device=dev)
         assert torch.equal(K.tree_combine(recv, part),
                            R.tree_combine_ref(recv, part)), \
-            ("tree_combine at an elastic reduce hop", rows_, m)
+            ("tree_combine at a reduce hop", rows_, m)
         del part, recv
     torch.cuda.empty_cache()
     log(f"kernels: tree_combine at the S=4 segments {engine_shapes[:2]}, "
-        f"the striped windows {windows} and the elastic reduce hops "
-        f"{hops} matches the plain version bit for bit")
+        f"the striped windows {windows} and the elastic and telemetry "
+        f"reduce hops {hops} matches the plain version bit for bit")
 
     # the codec at every shape the path gives it, one shape at a time;
     # timed at the ring's, the largest and the only one of q8_combine_rows
@@ -1817,6 +1843,266 @@ def phase_elastic(dev):
     return per_run
 
 
+SWEEP_SEGMENTS = (1, 2, 4, 8)
+TELEMETRY_PEAK = 46.34e9    # phase_elastic's peak on an H100
+
+
+def best_of(fns, rounds):
+    """Best host-clock seconds of one synchronised call per case, the
+    cases interleaved round-robin so drift hits every case alike, after
+    two untimed calls of each (the reference bench's ``_paired``)."""
+    import torch
+    for fn in fns.values():
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+    best = {name: math.inf for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best[name] = min(best[name], time.perf_counter() - t0)
+    return best
+
+
+def phase_telemetry(dev):
+    """The wave-level telemetry on the card, the port of the reference's
+    ``benchmarks/telemetry_bench.py``: returns ``{"telemetry": {kernel:
+    launches}}``, counted from 0 just before the wave-by-wave timer's runs
+    and the measured trace CLI and read just after them.
+
+    1. ``timing.wave_report`` of the pipelined and striped programs of the
+       4x4 torus (k=2) and the 2x8 torus (k=1), at 4 MiB and at the full
+       (16, 134,515,008) gradient: every wave's measured (CUDA events),
+       host and predicted (the committed ``cuda`` row) times.
+    2. ``timing.register_measured`` over every measured wave: the fitted
+       ``cuda`` row, alpha >= 0 and link_bw finite and positive.
+    3. ``python -m repro_torch.telemetry.trace --measured`` (its ``main``)
+       on the torus; each trace it writes validates.
+    4. The 2x8 torus's full-width pipelined program run wave by wave as
+       the timer runs it (every reduce hop one combine of 16 x
+       134,515,008 elements): its rows equal the engine's output bit for
+       bit and ``x.sum(0)`` within 1e-4 of the largest sum.
+    5. The full-width pipelined allreduce on the torus at S = 1, 2, 4, 8,
+       interleaved: the S ``segments="auto"`` picks (with the fitted row,
+       then with the committed one, the fit unregistered) within 5% of
+       the fastest, beside each S's ``sum(CostModel.wave_times(
+       segments=S))``.
+    6. ``launch.train --trace-out`` of one full-width step on the torus:
+       the trace validates, its spans timed by the committed ``cuda``
+       row.
+    7. The wave scopes: with scopes on and no profiler ``_scope`` opens
+       no range, so a scoped allreduce runs the plain one's code and the
+       reference bench's gate (scoped/plain <= 1.05) holds by
+       construction; under a profiler it opens one.  What the ranges
+       cost while the profiler a ``--profile-dir`` run opens records:
+       each engine's allreduce on each torus at both payloads with
+       ``set_wave_scopes(False)`` and ``(True)``, interleaved
+       round-robin, scoped/plain logged.
+    Peak memory under phase_elastic's 46.34 GB."""
+    import torch
+    from repro_torch.core.collectives import CostModel
+    from repro_torch.dist import striped
+    from repro_torch.dist import tree_allreduce as T
+    from repro_torch.dist.fabric import StackedFabric
+    from repro_torch.launch import train
+    from repro_torch.telemetry import timing, trace
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"telemetry: {torch.cuda.memory_allocated() / 1e9:.2f} GB held "
+        f"from before the phase")
+    committed = dict(CostModel._BUILTIN["cuda"])
+    log(f"telemetry: the committed cuda row {committed}")
+    per_run = {}
+    specs = {label: engine_specs(dims)
+             for label, dims in TELEMETRY_TORI.items()}
+
+    # 1. every wave of both programs of both tori, at both payloads
+    reset_all()
+    wires, secs = [], []
+    for nbytes in TELEMETRY_NBYTES:
+        for label in TELEMETRY_TORI:
+            for engine in ("pipelined", "striped"):
+                t0 = time.perf_counter()
+                full = nbytes == 4 * N_PARAMS
+                rep = timing.wave_report(specs[label][engine], nbytes,
+                                         iters=3 if full else 5, device=dev)
+                tag = f"telemetry waves {label} {engine} {nbytes} B"
+                for w in range(rep["waves"]):
+                    log(f"{tag}: w{w} wire {rep['wire_bytes'][w]} B, "
+                        f"predicted {rep['predicted_us'][w]!r} us, measured "
+                        f"{rep['measured_us'][w]!r} us, host "
+                        f"{rep['host_us'][w]!r} us")
+                log(f"{tag}: {rep['waves']} waves, {rep['summary']}, host "
+                    f"total {sum(rep['host_us'])!r} us, "
+                    f"{time.perf_counter() - t0!r}s")
+                assert all(t > 0 and math.isfinite(t)
+                           for t in rep["measured_us"] + rep["host_us"]), tag
+                wires.extend(rep["wire_bytes"])
+                secs.extend(t * 1e-6 for t in rep["measured_us"])
+                torch.cuda.empty_cache()
+
+    # 2. the fit over every measured wave
+    row = timing.register_measured(wires, secs, backend="cuda")
+    log(f"telemetry fit over {len(wires)} waves: {row}; registered "
+        f"{CostModel.for_backend('cuda')}")
+    assert row["alpha"] >= 0 and math.isfinite(row["link_bw"]) \
+        and 0 < row["link_bw"] < 1e15, row
+
+    # 3. the trace CLI, measured on the card
+    out_dir = ROOT / "build" / "telemetry"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rc = trace.main(["--topology", "torus4x4", "--all-engines",
+                         "--measured", "--out-dir", str(out_dir),
+                         "--validate"])
+    torch.cuda.synchronize()
+    per_run["telemetry"] = c = counts()
+    log(f"telemetry trace --measured: rc {rc}; "
+        + "; ".join(out.getvalue().strip().splitlines()))
+    assert rc == 0, out.getvalue()
+    for engine in ("pipelined", "striped"):
+        with open(out_dir / f"trace_torus4x4_{engine}.json") as f:
+            tr = json.load(f)
+        assert trace.validate_trace(tr) == [], engine
+        assert any(e["ph"] == "X" and e["dur"] > 0
+                   for e in tr["traceEvents"]), engine
+    shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"telemetry launches (timer + trace CLI): {c}")
+    assert c["tree_combine"] > 0, c
+
+    # 4. the 2x8 full-width program wave by wave against the engine
+    spec = specs["torus2x8"]["pipelined"]
+    fabric = StackedFabric(N_VERT, dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((N_VERT, N_PARAMS), generator=g, device=dev)
+    want = x.sum(0)
+    y = T.pipelined_tree_allreduce(x, spec, fabric, segments=1)
+    assert torch.equal(y, y[:1].expand_as(y)), "2x8 engine rows differ"
+    y = y[0].clone()              # every row the same: keep one
+    prep, fns, finish = timing.wave_steps(spec, fabric, N_PARAMS)
+    state = prep(x)
+    for fn in fns:
+        state = fn(state)
+    out = finish(state)
+    del state
+    same = torch.equal(out, y.expand_as(out))
+    del out
+    err, scale = max_err(y, want), float(want.abs().max())
+    log(f"telemetry 2x8 torus wave by wave at (16, {N_PARAMS}): "
+        f"{len(fns)} waves, rows equal to the engine's {same}, max|err| "
+        f"against x.sum(0) {err!r} (limit 1e-4 * {scale!r})")
+    assert same, "the wave-by-wave rows differ from the engine's"
+    assert err <= 1e-4 * scale, (err, scale)
+    del y, want
+    torch.cuda.empty_cache()
+
+    # 5. S in {1, 2, 4, 8} at full width against the auto pick
+    spec = specs["torus4x4"]["pipelined"]
+    mrow = -(-N_PARAMS // spec.k)
+    fns = {s: (lambda s=s: T.pipelined_tree_allreduce(x, spec, fabric,
+                                                      segments=s))
+           for s in SWEEP_SEGMENTS}
+    best = best_of(fns, 3)
+    fastest = min(best.values())
+    rows = {"fitted": CostModel.for_backend("cuda"),
+            "committed": CostModel(**committed)}
+    for s in SWEEP_SEGMENTS:
+        pred = {which: sum(cm.wave_times(spec, 4 * N_PARAMS, segments=s))
+                for which, cm in rows.items()}
+        log(f"telemetry segments S={s}: {best[s]!r}s "
+            f"({best[s] / fastest!r} of the fastest); predicted {pred}")
+    picks = {"fitted": T.auto_segments(spec, mrow, dev)}
+    CostModel._MEASURED.pop("cuda")
+    picks["committed"] = T.auto_segments(spec, mrow, dev)
+    for which, s in picks.items():
+        ratio = best[s] / fastest if s in best else math.inf
+        log(f"telemetry auto segments ({which} row): S={s}, "
+            f"{ratio!r} of the fastest (<= 1.05)")
+        assert ratio <= 1.05, (which, s, best)
+    assert T.resolve_codec("auto", dev) == "full"
+    del x
+    torch.cuda.empty_cache()
+
+    # 6. one full-width training step's --trace-out
+    path = ROOT / "build" / "sync_trace.json"
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = train.main(["--arch", "smollm-135m", "--batch", "32", "--seq",
+                          "256", "--device", "cuda", "--mesh", "4,4,1",
+                          "--sync", "edst", "--steps", "1",
+                          "--trace-out", str(path)])
+    printed = [ln for ln in out.getvalue().splitlines()
+               if "trace" in ln or "spans" in ln]
+    with open(path) as f:
+        tr = json.load(f)
+    path.unlink()
+    spans = [e for e in tr["traceEvents"] if e["ph"] == "X"]
+    cm = rows["committed"]
+    want = round((cm.alpha + spans[0]["args"]["wire_bytes"] / cm.link_bw)
+                 * 1e6, 3)
+    log(f"telemetry train --trace-out: {printed}; loss {res.losses}; "
+        f"{len(spans)} spans, first {spans[0]['dur']!r} us (cuda row: "
+        f"{want!r} us)")
+    assert trace.validate_trace(tr) == [] and spans
+    assert any("not the card's times" in ln for ln in printed), printed
+    assert spans[0]["dur"] == want and \
+        spans[0]["args"]["wire_bytes"] == 4 * (-(-N_PARAMS // 2))
+    assert all(math.isfinite(v) for v in res.losses), res.losses
+    del res, tr
+    torch.cuda.empty_cache()
+
+    # 7. the wave scopes, last: no range without a profiler; under one,
+    # what the ranges cost at both payloads, both tori, both engines
+    prev = T.set_wave_scopes(True)
+    assert isinstance(T._scope("edst/t0/w0/reduce"),
+                      contextlib.nullcontext), "a range without a profiler"
+    x = torch.randn((N_VERT, N_PARAMS), generator=g, device=dev)
+    prof = train.profiler(dev)
+    prof.start()
+    assert not isinstance(T._scope("edst/t0/w0/reduce"),
+                          contextlib.nullcontext), "no range under a profiler"
+    T.set_wave_scopes(prev)
+    for nbytes in TELEMETRY_NBYTES:
+        elems = nbytes // 4
+        xs = x[:, :elems]
+        xs = xs if elems == N_PARAMS else xs.contiguous()
+        for label in TELEMETRY_TORI:
+            for engine in ("pipelined", "striped"):
+                sp = specs[label][engine]
+
+                def call(scoped, sp=sp, xs=xs, engine=engine):
+                    prev = T.set_wave_scopes(scoped)
+                    try:
+                        if engine == "striped":
+                            striped.striped_allreduce(xs, sp, fabric)
+                        else:
+                            T.pipelined_tree_allreduce(xs, sp, fabric,
+                                                       segments=1)
+                    finally:
+                        T.set_wave_scopes(prev)
+
+                best = best_of({"plain": lambda: call(False),
+                                "scoped": lambda: call(True)},
+                               3 if nbytes == 4 * N_PARAMS else 20)
+                log(f"telemetry scopes under the profiler {label} {engine} "
+                    f"{nbytes} B: plain {best['plain']!r}s, scoped "
+                    f"{best['scoped']!r}s, scoped/plain "
+                    f"{best['scoped'] / best['plain']!r}")
+        del xs
+    prof.stop()
+    del x, prof
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"telemetry phase: {time.perf_counter() - t_phase!r}s, peak memory "
+        f"{peak / 1e9:.2f} GB (limit {TELEMETRY_PEAK / 1e9:.2f})")
+    assert peak < TELEMETRY_PEAK, peak
+    return per_run
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1838,11 +2124,11 @@ def main():
     per_run.update(phase_serve(dev))
     per_run.update(phase_zero1(dev))
     per_run.update(phase_elastic(dev))
+    per_run.update(phase_telemetry(dev))
     launches = {name: sum(c[name] for c in per_run.values())
                 for name in counts()}
-    log(f"launches over the allreduce, training, serving, zero1 and "
-        f"elastic runs: "
-        f"{launches}")
+    log(f"launches over the allreduce, training, serving, zero1, elastic "
+        f"and telemetry runs: {launches}")
     for name, n in launches.items():
         assert n > 0, f"{name} never launched on its path"
     for r in rows:

@@ -1049,6 +1049,11 @@ def main(argv=None) -> int:
                    help="print a waves/depth/makespan table per engine x "
                         "topology after verification (CostModel at 64 MiB; "
                         "the CI-log compile summary)")
+    p.add_argument("--trace", metavar="DIR", default=None,
+                   help="also write a predicted Perfetto (Chrome trace "
+                        "event JSON) file per verified engine x topology "
+                        "into DIR -- the --stats table rendered as a "
+                        "timeline (same 64 MiB CostModel timings)")
     args = p.parse_args(argv)
 
     engines = (ENGINES if args.engines is None or args.all_engines
@@ -1075,6 +1080,15 @@ def main(argv=None) -> int:
             bad += len(rep.violations)
             if args.stats:
                 stats_rows.append(_stats_row(label, eng, spec, rep))
+            if args.trace:
+                import os
+
+                from ..telemetry import trace as ttrace
+                os.makedirs(args.trace, exist_ok=True)
+                path = os.path.join(args.trace, f"trace_{label}_{eng}.json")
+                ttrace.write_trace(path, ttrace.trace_spec(
+                    spec, nbytes=_STATS_NBYTES, label=f"{label}/{eng}"))
+                print(f"  trace -> {path}")
         if args.simulate:
             failures = _simulate_case(label, sched, specs)
             status = "ok" if not failures else "FAIL"

@@ -1395,10 +1395,10 @@ class CostModel:
     overlap: bool = True       # can a step's disjoint-link waves overlap?
 
     # Measured calibrations registered at runtime take precedence over
-    # the built-in per-backend constants below.  Both built-in rows are
-    # the reference's constants, kept as they are: "cpu" for its XLA
-    # host backend, "tpu" (the class defaults) for TPU ICI.  No CUDA
-    # calibration has been measured, so "cuda" has no row.
+    # the built-in per-backend constants below.  The "cpu" and "tpu" rows
+    # are the reference's constants, kept as they are: "cpu" for its XLA
+    # host backend, "tpu" (the class defaults) for TPU ICI.  The "cuda"
+    # row is the port's own, fitted on the card (see its comment).
     _MEASURED = {}          # plain class attrs, not dataclass fields
     _BUILTIN = {
         # XLA host backend (fake devices): every collective serializes at
@@ -1409,6 +1409,19 @@ class CostModel:
         # the class defaults model a real fabric (per-link DMA engines:
         # waves on disjoint links overlap), calibrated against TPU ICI
         "tpu": {},
+        # the port's stacked fabric on one card: telemetry.timing's
+        # register_measured over every wave of the 4x4 and 2x8 tori's
+        # pipelined and striped programs at 4 MiB and at the full
+        # smollm-135m gradient (chip_smoke.py's phase_telemetry) on an
+        # NVIDIA H100 80GB HBM3 at a 700.00 W power limit.  A "link" is
+        # a gather in one card's memory plus the wave's mask and combine,
+        # so link_bw is the card's rate per wire byte of a wave, not a
+        # link's.  The stacked fabric runs a step's waves one after
+        # another (and S>1 skips fill and drain), so waves never overlap.
+        # Six calls' fits spread over 0.746-0.893 ms and 36.70-37.29 GB/s,
+        # so three digits are all they support.  With overlap False the
+        # model picks segments=1 whatever alpha and link_bw are.
+        "cuda": {"link_bw": 3.68e10, "alpha": 7.52e-4, "overlap": False},
     }
     _WARNED_BACKENDS = set()
 

@@ -130,20 +130,20 @@ def edst_spec_for_mesh(
 def _unflatten(flat, like):
     """Split a flat vector back into the tree of ``like`` (sorted-key
     order, C order within each leaf)."""
-    off = 0
+    return _unflatten_at(flat, like, 0)[0]
 
-    def take(p):
-        nonlocal off
-        n = p.numel()
-        out = flat[off:off + n].reshape(p.shape)
-        off += n
-        return out
 
-    def walk(t):
-        if isinstance(t, dict):
-            return {k: walk(t[k]) for k in sorted(t)}
-        return take(t)
-    return walk(like)
+def _unflatten_at(flat, like, off: int):
+    """``(tree, next offset)`` of :func:`_unflatten` from ``off``: a plain
+    recursive function, since a recursive closure is a reference cycle
+    that would hold ``flat`` until the cycle collector runs."""
+    if isinstance(like, dict):
+        out = {}
+        for k in sorted(like):
+            out[k], off = _unflatten_at(flat, like[k], off)
+        return out, off
+    n = like.numel()
+    return flat[off:off + n].reshape(like.shape), off + n
 
 
 def fault_runtime_for_mesh(mesh_shape, axis_names, dp_torus_shape=None,

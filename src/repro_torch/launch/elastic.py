@@ -43,6 +43,7 @@ import torch
 from repro_torch import configs
 from repro_torch.ckpt import restore, save_checkpoint
 from repro_torch.core.collectives import CostModel
+from repro_torch.core.device import resolve_device
 from repro_torch.core.edst_rt import max_edsts
 from repro_torch.core.fault import FailureEvent
 from repro_torch.core.graph import Graph
@@ -54,7 +55,7 @@ from repro_torch.dist.health import HealthMonitor
 from repro_torch.dist.recovery import RecoveryController, RecoveryPolicy
 from repro_torch.dist.steps import (dp_extent, edst_spec_for_mesh,
                                     fault_runtime_for_mesh, make_train_step)
-from repro_torch.launch.train import parse_mesh, resolve_device
+from repro_torch.launch.train import parse_mesh
 from repro_torch.models.transformer import init_lm
 from repro_torch.optim import AdamW, cosine_schedule
 from repro_torch.optim.adamw import tree_leaves
@@ -296,8 +297,11 @@ def chaos_loop(device, cfg, batch_size: int, seq: int, ckpt_dir: str,
     runtime = fault_runtime_for_mesh(mesh0, names)
     params = init_lm(cfg, torch.Generator(device=device).manual_seed(
         CHAOS_SEED), device)
+    # the loop's state; "n" is the vertex count, so the rescale hook needs
+    # no reference to the controller that holds it (a cycle would keep
+    # this state alive until the cycle collector ran)
     st = {"mesh": mesh0, "params": params, "opt_state": opt.init(params),
-          "restore_equal": None}
+          "restore_equal": None, "n": runtime.graph.n}
     del params
 
     def rebuild_exec(rt, straggler=None):
@@ -321,8 +325,9 @@ def chaos_loop(device, cfg, batch_size: int, seq: int, ckpt_dir: str,
                      opt_state=st["opt_state"])
 
     def on_rescale(event):
-        mesh = survivor_mesh(ctrl.runtime.graph.n - len(event.nodes))
+        mesh = survivor_mesh(st["n"] - len(event.nodes))
         new_rt = fault_runtime_for_mesh(mesh, names)
+        st["n"] = new_rt.graph.n
         params, opt_state, step = reshard_checkpoint(cfg, opt, ckpt_dir,
                                                      device)
         st["restore_equal"] = step == saved["step"] and same_state(

@@ -24,7 +24,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch import configs
-from repro_torch.launch.train import resolve_device
+from repro_torch.core.device import resolve_device
 from repro_torch.models import rglru as G
 from repro_torch.models import rwkv6 as W
 from repro_torch.models import transformer as T

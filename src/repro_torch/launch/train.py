@@ -16,9 +16,10 @@ and the recovery controller retries, flips or rebuilds; a node loss
 checkpoints and stops, naming the relaunch onto the survivors through
 :mod:`repro_torch.launch.elastic`.  ``--profile-dir`` writes a
 ``torch.profiler`` trace of the loop (Chrome trace JSON; every step is a ``train/step{i}``
-range and every sync wave an ``edst/t*/w*/op`` range), ``--metrics-out``
-the metrics registry as JSON, ``--journal-out`` the recovery journal as
-JSONL.
+range and every sync wave an ``edst/t*/w*/op`` range), ``--trace-out``
+the predicted Perfetto trace of the compiled sync program
+(:mod:`repro_torch.telemetry.trace`), ``--metrics-out`` the metrics
+registry as JSON, ``--journal-out`` the recovery journal as JSONL.
 
     python -m repro_torch.launch.train --arch smollm-135m --steps 3 \
         --batch 32 --seq 256 --mesh 4,4,1 --zero1 --ckpt-dir /tmp/ck
@@ -38,6 +39,7 @@ from repro_torch import configs
 from repro_torch.ckpt import (latest_step, restore, restore_sharded,
                               save_checkpoint, save_sharded_checkpoint)
 from repro_torch.core.collectives import owner_element_map
+from repro_torch.core.device import resolve_device
 from repro_torch.data import SyntheticLMStream
 from repro_torch.dist.steps import (ENGINES, dp_extent, edst_spec_for_mesh,
                                     fault_runtime_for_mesh, make_train_step)
@@ -51,14 +53,6 @@ def parse_mesh(s: str):
     dims = tuple(int(x) for x in s.split(","))
     names = ("pod", "data", "model")[-len(dims):]
     return dims, names
-
-
-def resolve_device(name: str) -> torch.device:
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass --device cpu to run on "
-                           "the CPU")
-    return dev
 
 
 @dataclass
@@ -125,6 +119,13 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--metrics-out", default=None,
                     help="dump the telemetry metrics registry (JSON) at "
                          "the end of the run")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a predicted Perfetto trace (Chrome trace "
+                         "event JSON) of the compiled sync program at this "
+                         "run's gradient payload size before training "
+                         "starts (--sync edst; with --recover the whole "
+                         "fault-runtime entry table is rendered; on CUDA "
+                         "timed by the card's CostModel row)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "versions of the kernels)")
@@ -215,6 +216,51 @@ def setup(args):
     return run, params, opt_state
 
 
+# the cuda row's predicted time of the 4x4 torus's full-width pipelined
+# program over the measured sum of its 12 waves (0.0968 s against 0.2241 s
+# on an NVIDIA H100 80GB HBM3 at 700 W, chip_smoke.py's phase_telemetry)
+CUDA_ROW_SHARE = 0.43
+
+
+def write_sync_trace(args, run: Run, params) -> None:
+    """``--trace-out``: the predicted Perfetto trace of the compiled sync
+    program at this run's gradient payload (4 bytes a parameter): the
+    fault runtime's entry table under ``--recover``, the striped spec
+    under ``--zero1``, else the ``--edst-engine`` spec.  On CUDA the
+    spans are timed by ``CostModel.for_backend("cuda")`` (and the printout
+    says how far that row falls short of the card); on the CPU by the
+    default constants, as in the reference."""
+    from repro_torch.core.collectives import CostModel
+    from repro_torch.telemetry import trace as ttrace
+    dims, names = parse_mesh(args.mesh)
+    if args.sync != "edst" or dp_extent(dims, names) < 2:
+        print("[train] --trace-out skipped: no compiled EDST sync "
+              "program on this mesh/sync mode")
+        return
+    nbytes = 4 * sum(p.numel() for p in tree_leaves(params))
+    cm = CostModel.for_backend("cuda") if run.device.type == "cuda" \
+        else None
+    consts = cm or CostModel()
+    print(f"[train] sync trace timed by the "
+          f"{'cuda' if cm else 'default'} CostModel: alpha "
+          f"{consts.alpha!r} s, link_bw {consts.link_bw!r} B/s")
+    if cm is not None:
+        print(f"[train] the spans are the cuda row's predictions, not the "
+              f"card's times: one alpha and link_bw over every wave "
+              f"predicts the 4x4 torus's full-width pipelined allreduce at "
+              f"{CUDA_ROW_SHARE:.0%} of its time measured on an H100")
+    if run.controller is not None:
+        tr = ttrace.trace_runtime(run.controller.runtime, nbytes=nbytes,
+                                  cost_model=cm)
+    else:
+        spec = run.zspec if run.zspec is not None else \
+            edst_spec_for_mesh(dims, names, engine=args.edst_engine)
+        tr = ttrace.trace_spec(spec, nbytes=nbytes, cost_model=cm,
+                               label=f"edst/{args.edst_engine}")
+    ttrace.write_trace(args.trace_out, tr)
+    print(f"[train] predicted sync trace -> {args.trace_out}")
+
+
 def profiler(device: torch.device):
     """A ``torch.profiler`` over the host and, on CUDA, the device."""
     acts = [torch.profiler.ProfilerActivity.CPU]
@@ -283,6 +329,8 @@ def main(argv=None, keep_first_step: bool = False) -> TrainResult:
                  "so its vertex rows differ by design and the controller "
                  "would read every step's checksum spread as corruption")
     run, params, opt_state = setup(args)
+    if args.trace_out:
+        write_sync_trace(args, run, params)
     params, opt_state, start = run.resume(params, opt_state)
     ctrl = run.controller
     init = _clone(params) if keep_first_step else None

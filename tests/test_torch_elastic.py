@@ -323,3 +323,30 @@ def test_closed_chaos_loop_reduced(tmp_path):
                                  "--ckpt-dir", ck])
     assert resumed.start_step == s
     assert resumed.losses == res["commits"][s:s + 2]
+
+
+def test_chaos_loop_leaves_no_tensor_in_a_reference_cycle(tmp_path):
+    """The loop's state is freed by reference counting once its result is
+    dropped: the controller holds the rescale hook, so the hook must not
+    hold the controller (that cycle kept the params, the optimizer state
+    and the node-loss checkpoint's copy of both alive until the cycle
+    collector ran)."""
+    import gc
+    cfg = configs.get("smollm-135m").reduced()
+    gc.collect()
+    gc.disable()
+    try:
+        res = elastic.chaos_loop(torch.device("cpu"), cfg, 16, 16,
+                                 str(tmp_path / "ck"), say=lambda s: None)
+        assert res["unhandled"] == 0
+        del res
+        gc.set_debug(gc.DEBUG_SAVEALL)
+        gc.collect()
+        held = [tuple(o.shape) for o in gc.garbage
+                if isinstance(o, torch.Tensor)]
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+        gc.enable()
+        gc.collect()
+    assert not held, held

@@ -377,7 +377,7 @@ def test_tree_allreduce_dispatches_on_the_spec_form():
 
 def test_segment_policy():
     _, _, _, pspec, _ = _specs(FABRICS["torus4x4"])
-    # the reference's CPU calibration never streams; CUDA is pinned to 1
+    # the reference's CPU calibration never streams, nor does the cuda row
     for row in (1, 1000, 67_257_504):
         assert T.auto_segments(pspec, row, "cpu") == 1
         assert T.auto_segments(pspec, row, torch.device("cuda", 0)) == 1

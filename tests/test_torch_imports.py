@@ -41,7 +41,8 @@ def test_no_jax_or_reference_imports(path):
     "launch/train.py", "core/fault.py", "analysis/verify.py",
     "dist/fault.py", "optim/sharded.py", "dist/health.py",
     "dist/recovery.py", "ckpt/checkpoint.py", "dist/chaos.py",
-    "launch/elastic.py"])
+    "launch/elastic.py", "telemetry/trace.py", "telemetry/timing.py",
+    "core/device.py"])
 def test_the_engine_modules_are_checked(module):
     """The EDST engines, their compilers and telemetry are among the
     files checked above."""
