@@ -7,20 +7,25 @@ Builds the port's four kernel libraries (tree-combine / int8 wire codec,
 flash attention, RG-LRU scan, WKV6) from the sources in this checkout,
 one ``nvcc`` per source, all at once; holds each kernel against its plain
 PyTorch version at ragged small shapes and at every shape its path gives
-it, and times it (flash attention in bf16, on the tensor cores, at both
-prefill shapes, and in f32, on the CUDA cores, at recurrentgemma-2b's;
-beside SDPA, and at smollm-135m's also SDPA's is_causal form); sums a
+it, and times it (flash attention in bf16, on the tensor cores, at all
+five prefill layouts, and in f32, on the CUDA cores, at
+recurrentgemma-2b's; beside SDPA, and at the four without a window also
+SDPA's is_causal form); sums a
 full-size stacked gradient with every EDST engine (per-tree, fused,
 pipelined at 1 and 4 segments, striped; 4x4 torus f32 and int8, ring 16
 int8); trains the full-width smollm-135m data-parallel over the 16
 vertices of the 4x4 torus (edst with each engine, edst + int8 wire,
 psum_dp, and one profiled edst step whose trace it splits into the
 sync's waves) and of the ring 16 (edst + int8 wire, the fabric whose
-reduce hops run q8_combine); and serves three full-width models through
-the serving entry point, bf16, 32 greedy tokens each: recurrentgemma-2b
-(batch 8, prompt 4096), smollm-135m (batch 8, prompt 1024) and rwkv6-7b
-(batch 8, prompt 4096), each followed by an f32 check that a decode
-step's logits equal those of a prefill of the same tokens; then trains
+reduce hops run q8_combine); and serves eight full-width models through
+the serving entry point, bf16: recurrentgemma-2b (batch 8, prompt 4096),
+smollm-135m (batch 8, prompt 1024) and rwkv6-7b (batch 8, prompt 4096),
+32 greedy tokens each, and qwen2-7b (qkv bias), qwen3-8b (qk-norm),
+mistral-nemo-12b, olmoe-1b-7b and qwen2-moe-a2.7b (GShard MoE), batch 8,
+prompt 4096, 16 tokens each (flash attention at head_dim 128, also held
+and timed at their three prefill layouts), each model followed by an f32
+check that a decode step's logits equal those of a prefill of the same
+tokens; then trains
 ZeRO-1 over the torus (held to psum_dp, over the int8 wire, through the
 striped fault runtime with a link of tree 0 killed and the moments
 resharded, checkpointed and resumed bit for bit, restored onto a
@@ -450,20 +455,36 @@ FLASH_SMALL = ((2, 128, 8, 2, 64, True, None), (1, 100, 4, 4, 32, True, None),
                (1, 64, 4, 2, 128, True, None), (2, 333, 10, 1, 256, True, 100),
                (3, 301, 9, 3, 64, True, None), (2, 40, 10, 1, 256, True, None),
                (2, 129, 10, 1, 256, True, 65), (2, 127, 9, 3, 64, True, 63),
-               (1, 191, 10, 1, 128, True, 1), (1, 65, 4, 2, 32, True, 64))
-# the prefill attention of each served model: (b, s, h, kv, d, window)
+               (1, 191, 10, 1, 128, True, 1), (1, 65, 4, 2, 32, True, 64),
+               (2, 77, 14, 2, 128, True, None), (1, 300, 28, 4, 128, True,
+                                                 None))
+# the prefill attention of each served model: (b, s, h, kv, d, window);
+# qwen3-8b's layout is mistral-nemo-12b's, olmoe-1b-7b's qwen2-moe-a2.7b's
 FLASH_PATH = {"recurrentgemma-2b": (8, 4096, 10, 1, 256, 2048),
-              "smollm-135m": (8, 1024, 9, 3, 64, None)}
-# (batch, prompt, generated tokens) served per model
+              "smollm-135m": (8, 1024, 9, 3, 64, None),
+              "qwen2-7b": (8, 4096, 28, 4, 128, None),
+              "qwen3-8b / mistral-nemo-12b": (8, 4096, 32, 8, 128, None),
+              "olmoe-1b-7b / qwen2-moe-a2.7b": (8, 4096, 16, 16, 128, None)}
+# (batch, prompt, generated tokens) served per model; the prompt of the
+# MoE models is a multiple of their groups (256, 512), which keeps the f32
+# decode check exact (see f32_decode_check)
 SERVE = {"recurrentgemma-2b": (8, 4096, 32), "smollm-135m": (8, 1024, 32),
-         "rwkv6-7b": (8, 4096, 32)}
+         "rwkv6-7b": (8, 4096, 32), "qwen2-7b": (8, 4096, 16),
+         "qwen3-8b": (8, 4096, 16), "mistral-nemo-12b": (8, 4096, 16),
+         "olmoe-1b-7b": (8, 4096, 16), "qwen2-moe-a2.7b": (8, 4096, 16)}
+# the lm models held to the f32 check's limit with the bf16 KV cache too
+# (the others log that gap; see f32_decode_check)
+BF16_CACHE_HELD = ("smollm-135m",)
 RG_SCAN = (8, 4096, 2560)      # one RG-LRU layer's scan in that prefill
-PATH_LAUNCHES = {"recurrentgemma-2b": {"flash_attention": 8,
-                                       "rglru_scan": 18, "wkv6": 0},
-                 "smollm-135m": {"flash_attention": 30, "rglru_scan": 0,
-                                 "wkv6": 0},
-                 "rwkv6-7b": {"flash_attention": 0, "rglru_scan": 0,
-                              "wkv6": 32}}
+# the counted run's launches: one prefill (decode runs no kernel)
+PATH_LAUNCHES = {
+    "recurrentgemma-2b": {"flash_attention": 8, "rglru_scan": 18, "wkv6": 0},
+    "smollm-135m": {"flash_attention": 30, "rglru_scan": 0, "wkv6": 0},
+    "rwkv6-7b": {"flash_attention": 0, "rglru_scan": 0, "wkv6": 32},
+    **{arch: {"flash_attention": n, "rglru_scan": 0, "wkv6": 0}
+       for arch, n in (("qwen2-7b", 28), ("qwen3-8b", 36),
+                       ("mistral-nemo-12b", 40), ("olmoe-1b-7b", 16),
+                       ("qwen2-moe-a2.7b", 24))}}
 # (b, t, h, n, chunk): the reference kernel test's three shapes, then
 # ragged ones at N 64, 32 and 16 (a ragged last chunk, T < chunk)
 WKV_SMALL = ((2, 100, 3, 16, 32), (1, 64, 2, 64, 64), (2, 33, 4, 8, 16),
@@ -837,6 +858,33 @@ def counts():
     return out
 
 
+@contextlib.contextmanager
+def layer_readout():
+    """While open, every transformer layer's output at the last position
+    goes to ``rec["x"]`` and every MoE router's chosen experts to
+    ``rec["idx"]``, for the f32 check's per-layer log.  It wraps
+    ``transformer._block`` and ``moe.route`` for its duration."""
+    from repro_torch.models import moe, transformer as T
+    rec = {"x": [], "idx": []}
+    block, route = T._block, moe.route
+
+    def _block(*args, **kw):
+        out, aux = block(*args, **kw)
+        rec["x"].append(out[:, -1].clone())
+        return out, aux
+
+    def _route(*args):
+        r = route(*args)
+        rec["idx"].append(r[3].clone())     # a view of the whole sort
+        return r
+
+    T._block, moe.route = _block, _route
+    try:
+        yield rec
+    finally:
+        T._block, moe.route = block, route
+
+
 def f32_decode_check(dev, arch, prompt):
     """At full width in f32: prefill ``prompt`` tokens, decode one, and
     hold the decode's logits (plain attention over the cache, one plain
@@ -846,34 +894,100 @@ def f32_decode_check(dev, arch, prompt):
     chunked WKV against one step, other matmul shapes).  On an H100 that
     reorder gave 1.4e-5 (recurrentgemma-2b), 2.5e-6 (smollm-135m) and
     2.4e-5 (rwkv6-7b) of the largest logit, so the limit is 1e-4 of it:
-    7, 40 and 4 times those readings."""
+    7, 40 and 4 times those readings; with the f32 cache below, 4.9e-6
+    to 5.6e-6 (qwen2-7b, qwen3-8b, mistral-nemo-12b), 1.97e-5
+    (olmoe-1b-7b) and 6.90e-5 (qwen2-moe-a2.7b, 1.45 times under it).
+
+    The lm and moe families run it twice: with an f32 KV cache, and with
+    the bf16 one that serving writes.  The two prefills' matmuls of
+    different lengths may round a prompt key's last f32 bits apart, and a
+    bf16 cache can turn that into one-ulp flips that add up layer by
+    layer; so with the bf16 cache only the models of ``BF16_CACHE_HELD``
+    are held to the limit and the others' gap is logged, and with the f32
+    cache every model is held to it.  Each run logs, layer by layer, the
+    gap between the new token's hidden states in the decode and in the
+    second prefill.  For the MoE models ``prompt`` is a multiple of the
+    group size: the first ``prompt`` tokens form the same groups in both
+    prefills, and the new token heads a group of its own and keeps every
+    choice, as in decode's group of one.  The routing is not the same in
+    the two prefills all the same: their products run at other shapes,
+    and a prompt token near a tie tips to another expert, with its
+    group's drops.  On an H100 qwen2-moe-a2.7b's f32 run tipped 1 of the
+    32768 prompt tokens at layer 0 and 420 at layer 23, and the new
+    token's hidden-state gap grew from 3.3e-6 to 7.5e-5 of its largest;
+    olmoe-1b-7b's tipped none.  Each run logs, per layer, the prompt
+    tokens routed differently in the two prefills and the new tokens
+    routed differently in the decode and the second prefill."""
     import dataclasses
 
     import torch
     from repro_torch import configs
     from repro_torch.launch.serve import model_fns
+    from repro_torch.models import transformer as T
     cfg = dataclasses.replace(configs.get(arch), act_dtype_name="float32")
-    init, prefill, decode = model_fns(cfg)
+    init, served_prefill, decode = model_fns(cfg)
     b = SERVE[arch][0]
+
+    def f32_cache_prefill(params, tokens, max_len):
+        """``T.prefill`` with an f32 cache."""
+        cache = T.init_cache(cfg, tokens.shape[0], max_len,
+                             dtype=torch.float32, device=dev)
+        logits = T.forward(cfg, params, tokens, cache=cache, cache_len=0,
+                           last_only=True)
+        return logits[:, -1], cache
+
+    # (what the run's KV cache holds, its prefill, held to the limit)
+    runs = ((("f32 cache", f32_cache_prefill, True),
+             ("bf16 cache", served_prefill, arch in BF16_CACHE_HELD))
+            if cfg.family in ("lm", "moe") else (("", served_prefill, True),))
     with torch.inference_mode():
         params = init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
         gen = torch.Generator(device=dev).manual_seed(1)
         prompts = torch.randint(0, cfg.vocab, (b, prompt), generator=gen,
                                 device=dev)
-        logits, caches = prefill(params, prompts, prompt + 1)
-        tok = logits[:, :cfg.vocab].argmax(-1)[:, None]
-        dec, _ = decode(params, caches, tok, prompt)
-        del caches
-        full, _ = prefill(params, torch.cat([prompts, tok], 1), prompt + 1)
-        dec, full = dec[:, :cfg.vocab], full[:, :cfg.vocab]
-        err = max_err(dec, full)
-        scale = float(full.abs().max())
-        same = bool((dec.argmax(-1) == full.argmax(-1)).all())
-    tol = 1e-4 * max(1.0, scale)
-    log(f"f32 check {arch}: decode at {prompt} vs prefill of {prompt + 1}: "
-        f"max|dlogit| {err!r} <= {tol!r} (1e-4 * max(1, max|logit| "
-        f"{scale!r})), greedy tokens equal {same}")
-    assert math.isfinite(err) and err <= tol, (arch, err, tol)
+        for cache, prefill, held in runs:
+            tag = f"f32 check {arch}" + (f", {cache}" if cache else "")
+            torch.cuda.reset_peak_memory_stats()
+            with layer_readout() as first:
+                logits, caches = prefill(params, prompts, prompt + 1)
+            tok = logits[:, :cfg.vocab].argmax(-1)[:, None]
+            with layer_readout() as step:
+                dec = decode(params, caches, tok, prompt)[0]
+            del caches
+            with layer_readout() as second:
+                full = prefill(params, torch.cat([prompts, tok], 1),
+                               prompt + 1)[0]
+            dec, full = dec[:, :cfg.vocab], full[:, :cfg.vocab]
+            err = max_err(dec, full)
+            scale = float(full.abs().max())
+            same = bool((dec.argmax(-1) == full.argmax(-1)).all())
+            tol = 1e-4 * max(1.0, scale)
+            log(f"{tag}: decode at {prompt} vs prefill of {prompt + 1}: "
+                f"max|dlogit| {err!r} {'<=' if err <= tol else '>'} {tol!r} "
+                f"(1e-4 * max(1, max|logit| {scale!r}); "
+                f"{'held' if held else 'logged, not held'}), greedy tokens "
+                f"equal {same}, peak memory "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+            if step["x"]:
+                gaps = [float((x - y).abs().max() / y.abs().max())
+                        for x, y in zip(step["x"], second["x"])]
+                log(f"{tag}: the new token's hidden-state gap after each "
+                    f"layer (of its largest): "
+                    + " ".join(f"{g:.2e}" for g in gaps))
+            if first["idx"]:
+                ng = first["idx"][0].shape[1]
+                moved = [int((x != y[:, :ng]).any(-1).sum())
+                         for x, y in zip(first["idx"], second["idx"])]
+                new = [int((x.reshape(b, -1) != y[:, ng, 0]).any(-1).sum())
+                       for x, y in zip(step["idx"], second["idx"])]
+                log(f"{tag}: prompt tokens (of {b * prompt}) whose experts "
+                    f"differ in the two prefills, by layer: {moved}; new "
+                    f"tokens (of {b}) whose experts differ in the decode "
+                    f"and the second prefill: {new}")
+            del first, step, second
+            torch.cuda.empty_cache()
+            if held:
+                assert math.isfinite(err) and err <= tol, (tag, err, tol)
     del params
     torch.cuda.empty_cache()
 

@@ -1,6 +1,6 @@
 """Batched serving entry point of the port: prefill a batch of prompts,
-then decode greedily with the KV cache (``lm``), the KV and recurrent
-caches (``rglru``) or the WKV state (``rwkv6``).
+then decode greedily with the KV cache (``lm``, ``moe``), the KV and
+recurrent caches (``rglru``) or the WKV state (``rwkv6``).
 
 Runs on the CUDA device unless ``--device cpu`` is given; with no CUDA
 device and no ``--device cpu`` it raises rather than carry on on the CPU.
@@ -12,6 +12,8 @@ the WKV6 kernel; decode steps are plain PyTorch.
         --prompt-len 4096 --gen 32
     python -m repro_torch.launch.serve --arch rwkv6-7b --batch 8 \\
         --prompt-len 4096 --gen 32
+    python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --batch 8 \\
+        --prompt-len 4096 --gen 16
     python -m repro_torch.launch.serve --arch smollm-135m --reduced \\
         --batch 2 --prompt-len 40 --gen 8 --device cpu
 """
@@ -56,7 +58,7 @@ def parser() -> argparse.ArgumentParser:
 def model_fns(cfg):
     """``(init, prefill(params, prompts, max_len), decode_step)`` of the
     config's family."""
-    if cfg.family == "lm":
+    if cfg.family in ("lm", "moe"):
         return (T.init_lm,
                 lambda p, tok, n: T.prefill(cfg, p, tok, n),
                 lambda p, c, tok, n: T.decode_step(cfg, p, c, tok, n))
@@ -70,7 +72,7 @@ def model_fns(cfg):
                 lambda p, c, tok, n: W.decode_step(cfg, p, c, tok))
     raise NotImplementedError(
         f"{cfg.name}: the {cfg.family!r} family is not ported yet (ROADMAP "
-        "Queue 1: moe, encdec and vlm)")
+        "Queue 1: encdec and vlm)")
 
 
 @torch.inference_mode()

@@ -1,6 +1,7 @@
-"""Shared layers of the port's models: norms (RMS, and the layer norm of
-``rwkv6``), rotary embeddings, GQA attention, the gated MLP, embeddings
-and the chunked cross-entropy.
+"""Shared layers of the port's models: the stacked-layer init, norms (RMS,
+and the layer norm of ``rwkv6``), rotary embeddings, GQA attention (with
+the optional qkv bias and qk-norm), the gated MLP, embeddings and the
+chunked cross-entropy.
 
 Parameters are plain dicts of tensors that mirror the reference's tree key
 for key (``repro/models/layers.py``).  The casts follow the reference
@@ -38,6 +39,35 @@ def ninit(gen, shape, scale=None, device="cpu"):
 
 def zinit(shape, device="cpu"):
     return torch.zeros(shape, dtype=torch.float32, device=device)
+
+
+def init_stacked(make, n):
+    """``n`` calls of ``make()`` (a tree of tensors) stacked along a new
+    leading dimension.  Each stacked leaf is allocated once and filled
+    layer by layer, in the order of the calls, so the peak is the stack
+    plus one layer (``torch.stack`` of a list would hold every layer
+    twice)."""
+    first = make()
+    out = _tree_map(lambda x: x.new_empty((n,) + tuple(x.shape)), first)
+    _fill(out, first, 0)
+    del first
+    for i in range(1, n):
+        _fill(out, make(), i)
+    return out
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _fill(dst, src, i):
+    for key, val in src.items():
+        if isinstance(val, dict):
+            _fill(dst[key], val, i)
+        else:
+            dst[key][i] = val
 
 
 # ---------------------------------------------------------------------------
@@ -96,19 +126,29 @@ class AttnCfg:
     n_heads: int
     n_kv: int
     head_dim: int
+    qkv_bias: bool = False
+    qk_norm: bool = False
     window: int | None = None       # sliding-window size (None = full)
     rope_theta: float = 10000.0
 
 
 def init_attention(gen, cfg: AttnCfg, device="cpu"):
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
-    return {
+    p = {
         "wq": ninit(gen, (d, h, hd), device=device),
         "wk": ninit(gen, (d, kv, hd), device=device),
         "wv": ninit(gen, (d, kv, hd), device=device),
         "wo": ninit(gen, (h, hd, d), scale=1.0 / np.sqrt(h * hd),
                     device=device),
     }
+    if cfg.qkv_bias:
+        p["bq"] = zinit((h, hd), device)
+        p["bk"] = zinit((kv, hd), device)
+        p["bv"] = zinit((kv, hd), device)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=torch.float32, device=device)
+        p["k_norm"] = torch.ones((hd,), dtype=torch.float32, device=device)
+    return p
 
 
 def attention(p, cfg: AttnCfg, x, positions, *, kv_cache=None,
@@ -134,6 +174,13 @@ def attention(p, cfg: AttnCfg, x, positions, *, kv_cache=None,
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    if cfg.qk_norm:     # the reference's _headwise_rms: rmsnorm over hd
+        q = rmsnorm({"scale": p["q_norm"]}, q)
+        k = rmsnorm({"scale": p["k_norm"]}, k)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     kv_pos, valid_len, new_cache = positions, None, (k, v)

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from ..kernels.rglru.ops import lru_scan
 from . import layers as L
-from .transformer import _stack, _unbind, attn_cfg
+from .transformer import _unbind, attn_cfg
 
 C_RGLRU = 8.0  # Griffin's fixed recurrence sharpness constant
 SENTINEL = 10 ** 9
@@ -73,15 +73,17 @@ def init_rglru_model(cfg, gen: torch.Generator, device="cpu"):
     n_att = max(sum(k == "attn" for k in kinds), 1)
     return {
         "embed": L.init_embedding(gen, cfg.vocab_padded, cfg.d_model, device),
-        "rec": _stack([init_rec_layer(cfg, gen, device)
-                       for _ in range(n_rec)]),
-        "att": _stack([{"ln": L.init_rmsnorm(cfg.d_model, device),
-                        "attn": L.init_attention(gen, attn_cfg(cfg), device)}
-                       for _ in range(n_att)]),
-        "mlp": _stack([{"ln": L.init_rmsnorm(cfg.d_model, device),
-                        "mlp": L.init_glu_mlp(gen, cfg.d_model, cfg.d_ff,
-                                              device)}
-                       for _ in range(cfg.n_layers)]),
+        "rec": L.init_stacked(lambda: init_rec_layer(cfg, gen, device),
+                              n_rec),
+        "att": L.init_stacked(
+            lambda: {"ln": L.init_rmsnorm(cfg.d_model, device),
+                     "attn": L.init_attention(gen, attn_cfg(cfg), device)},
+            n_att),
+        "mlp": L.init_stacked(
+            lambda: {"ln": L.init_rmsnorm(cfg.d_model, device),
+                     "mlp": L.init_glu_mlp(gen, cfg.d_model, cfg.d_ff,
+                                           device)},
+            cfg.n_layers),
         "final_norm": L.init_rmsnorm(cfg.d_model, device),
     }
 

@@ -66,33 +66,14 @@ def init_layer(cfg, gen, device="cpu"):
     }
 
 
-def _stack_into(dst, src, i):
-    for key, val in src.items():
-        if isinstance(val, dict):
-            _stack_into(dst[key], val, i)
-        else:
-            dst[key][i] = val
-
-
-def _empty_stack(tree, n):
-    if isinstance(tree, dict):
-        return {k: _empty_stack(v, n) for k, v in tree.items()}
-    return tree.new_empty((n,) + tuple(tree.shape))
-
-
 def init_rwkv6_model(cfg, gen: torch.Generator, device="cpu"):
     """Parameters drawn from ``gen`` (a generator on ``device``).  The
     numbers differ from the reference's ``jax.random`` ones; the tree, the
-    shapes and the scales are the same.  Layers are drawn one at a time
-    into the stacked tensors, so the peak is the model plus one layer."""
+    shapes and the scales are the same."""
     embed = L.init_embedding(gen, cfg.vocab_padded, cfg.d_model, device)
-    first = init_layer(cfg, gen, device)
-    layers = _empty_stack(first, cfg.n_layers)
-    _stack_into(layers, first, 0)
-    del first
-    for i in range(1, cfg.n_layers):
-        _stack_into(layers, init_layer(cfg, gen, device), i)
-    return {"embed": embed, "layers": layers,
+    return {"embed": embed,
+            "layers": L.init_stacked(lambda: init_layer(cfg, gen, device),
+                                     cfg.n_layers),
             "final_norm": L.init_layernorm(cfg.d_model, device)}
 
 

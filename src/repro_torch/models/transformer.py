@@ -1,6 +1,7 @@
-"""Decoder-only transformer LM, ``lm`` family without MoE (the reference's
-``repro/models/transformer.py``): pre-norm GQA attention + gated MLP
-blocks, tied embeddings.
+"""Decoder-only transformer LM, ``lm`` and ``moe`` families (the
+reference's ``repro/models/transformer.py``): pre-norm GQA attention
+(optionally with qkv bias or qk-norm) + gated MLP or MoE blocks, tied
+embeddings.
 
 Layer parameters are stacked along a leading ``layers`` dimension, as the
 reference stacks them for its ``scan``; the forward unbinds them once (one
@@ -13,15 +14,24 @@ from __future__ import annotations
 import torch
 
 from . import layers as L
+from .moe import MoECfg, init_moe, moe_layer
 
 
 def attn_cfg(cfg) -> L.AttnCfg:
-    if cfg.qkv_bias or cfg.qk_norm or cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: qkv bias, qk-norm and MoE "
-                                  "are not ported")
     return L.AttnCfg(d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
-                     head_dim=cfg.head_dim_, window=cfg.window,
+                     head_dim=cfg.head_dim_, qkv_bias=cfg.qkv_bias,
+                     qk_norm=cfg.qk_norm, window=cfg.window,
                      rope_theta=cfg.rope_theta)
+
+
+def moe_cfg(cfg) -> MoECfg:
+    """As the reference's: ``cfg.moe_renorm`` is not passed, so the top-k
+    gates are renormalised (``MoECfg.renorm``'s default) in every config."""
+    return MoECfg(d_model=cfg.d_model, n_experts=cfg.n_experts,
+                  n_experts_padded=cfg.n_experts_padded, top_k=cfg.top_k,
+                  d_expert=cfg.d_expert, n_shared=cfg.n_shared,
+                  group_size=cfg.moe_group_size,
+                  capacity_factor=cfg.moe_capacity_factor)
 
 
 # ---------------------------------------------------------------------------
@@ -29,18 +39,16 @@ def attn_cfg(cfg) -> L.AttnCfg:
 # ---------------------------------------------------------------------------
 
 def init_layer(cfg, gen, device="cpu"):
-    return {
+    p = {
         "ln1": L.init_rmsnorm(cfg.d_model, device),
         "attn": L.init_attention(gen, attn_cfg(cfg), device),
         "ln2": L.init_rmsnorm(cfg.d_model, device),
-        "mlp": L.init_glu_mlp(gen, cfg.d_model, cfg.d_ff, device),
     }
-
-
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+    if cfg.is_moe:
+        p["moe"] = init_moe(gen, moe_cfg(cfg), device)
+    else:
+        p["mlp"] = L.init_glu_mlp(gen, cfg.d_model, cfg.d_ff, device)
+    return p
 
 
 def init_lm(cfg, gen: torch.Generator, device="cpu"):
@@ -49,8 +57,8 @@ def init_lm(cfg, gen: torch.Generator, device="cpu"):
     shapes and the scales are the same."""
     return {
         "embed": L.init_embedding(gen, cfg.vocab_padded, cfg.d_model, device),
-        "layers": _stack([init_layer(cfg, gen, device)
-                          for _ in range(cfg.n_layers)]),
+        "layers": L.init_stacked(lambda: init_layer(cfg, gen, device),
+                                 cfg.n_layers),
         "final_norm": L.init_rmsnorm(cfg.d_model, device),
     }
 
@@ -69,19 +77,25 @@ def _unbind(tree):
 
 def _block(cfg, lp, x, positions, kv_cache=None, cache_len=None,
            fresh=False):
+    """One layer: ``(x, aux)``, aux the MoE's losses (empty for a dense
+    MLP)."""
     h, _ = L.attention(lp["attn"], attn_cfg(cfg), L.rmsnorm(lp["ln1"], x),
                        positions, kv_cache=kv_cache, cache_len=cache_len,
                        fresh=fresh)
     x = x + h
     h2 = L.rmsnorm(lp["ln2"], x)
-    return x + L.glu_mlp(lp["mlp"], h2, cfg.mlp_kind)
+    if cfg.is_moe:
+        out, aux = moe_layer(lp["moe"], moe_cfg(cfg), h2)
+    else:
+        out, aux = L.glu_mlp(lp["mlp"], h2, cfg.mlp_kind), {}
+    return x + out, aux
 
 
-def forward(cfg, params, tokens, *, cache=None, cache_len=None,
-            last_only=False, return_hidden=False):
-    """tokens: (B, S) int.  Returns logits (B, S, vocab_padded), or the
-    final-normed hidden states with ``return_hidden``; ``last_only`` keeps
-    the last position only.
+def hidden_states(cfg, params, tokens, *, cache=None, cache_len=None,
+                  last_only=False):
+    """tokens: (B, S) int.  Returns ``(hidden, aux)``: the final-normed
+    hidden states (B, S, d), only the last position with ``last_only``,
+    and each auxiliary loss averaged over the layers (none without MoE).
 
     cache: ``(k, v)``, each (L, B, S_max, KV, hd), holding ``cache_len``
     valid positions; the new keys and values are written into it in
@@ -91,24 +105,37 @@ def forward(cfg, params, tokens, *, cache=None, cache_len=None,
     base = 0 if cache_len is None else cache_len
     positions = base + torch.arange(tokens.shape[1], device=tokens.device)
     fresh = cache is not None and cache_len == 0
+    per_layer = []
     for i, lp in enumerate(_unbind(params["layers"])):
         kv = None if cache is None else (cache[0][i], cache[1][i])
-        x = _block(cfg, lp, x, positions, kv, cache_len, fresh)
+        x, aux = _block(cfg, lp, x, positions, kv, cache_len, fresh)
+        per_layer.append(aux)
     if last_only:
         x = x[:, -1:]
-    x = L.rmsnorm(params["final_norm"], x)
-    if return_hidden:
-        return x
+    aux = {k: torch.stack([a[k] for a in per_layer]).mean()
+           for k in per_layer[0]}
+    return L.rmsnorm(params["final_norm"], x), aux
+
+
+def forward(cfg, params, tokens, *, cache=None, cache_len=None,
+            last_only=False):
+    """Logits (B, S, vocab_padded) of :func:`hidden_states`."""
+    x, _ = hidden_states(cfg, params, tokens, cache=cache,
+                         cache_len=cache_len, last_only=last_only)
     return L.unembed(params["embed"], x, cfg.vocab)
 
 
 def loss_fn(cfg, params, batch):
-    """Next-token loss on ``batch["tokens"]`` (B, S + 1)."""
+    """Next-token loss on ``batch["tokens"]`` (B, S + 1), plus
+    ``aux_loss_weight`` times each auxiliary loss; metrics ``xent`` (that
+    total, as in the reference) and the auxiliary losses."""
     tokens = batch["tokens"]
-    hidden = forward(cfg, params, tokens[:, :-1], return_hidden=True)
+    hidden, aux = hidden_states(cfg, params, tokens[:, :-1])
     loss = L.chunked_unembed_xent(params["embed"], hidden, tokens[:, 1:],
                                   cfg.vocab)
-    return loss, {"xent": loss}
+    for v in aux.values():
+        loss = loss + cfg.aux_loss_weight * v
+    return loss, {"xent": loss, **aux}
 
 
 # ---------------------------------------------------------------------------

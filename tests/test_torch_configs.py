@@ -55,7 +55,7 @@ def test_reduced_matches_reference(name):
 
 @pytest.mark.parametrize("name", sorted(tconfigs.ARCHS))
 def test_registered_configs_equal_reference(name):
-    """The three configs the port registers are the reference's, so their
+    """The configs the port registers are the reference's, so their
     counts (and what the port runs) are unchanged."""
     jcfg, tcfg = jconfigs.get(name), tconfigs.get(name)
     assert dataclasses.asdict(tcfg) == _shared(jcfg)

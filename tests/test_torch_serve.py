@@ -184,7 +184,9 @@ def test_lm_decode_matches_reference(lm):
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "smollm-135m",
-                                  "rwkv6-7b"])
+                                  "rwkv6-7b", "qwen2-7b", "qwen3-8b",
+                                  "mistral-nemo-12b", "olmoe-1b-7b",
+                                  "qwen2-moe-a2.7b"])
 def test_serve_entry_point_on_cpu(arch):
     res = serve.main(["--arch", arch, "--reduced", "--batch", "2",
                       "--prompt-len", "36", "--gen", "4", "--device", "cpu"])
@@ -194,10 +196,11 @@ def test_serve_entry_point_on_cpu(arch):
 
 
 def test_serve_refuses_unported_families():
-    cfg = dataclasses.replace(tconfigs.get("smollm-135m").reduced(),
-                              family="moe")
-    with pytest.raises(NotImplementedError, match="moe"):
-        serve.model_fns(cfg)
+    for family in ("encdec", "vlm"):
+        cfg = dataclasses.replace(tconfigs.get("smollm-135m").reduced(),
+                                  family=family)
+        with pytest.raises(NotImplementedError, match=family):
+            serve.model_fns(cfg)
 
 
 def test_convert_round_trip_on_the_rglru_tree(rg):
