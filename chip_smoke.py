@@ -8,9 +8,9 @@ flash attention, RG-LRU scan, WKV6) from the sources in this checkout,
 one ``nvcc`` per source, all at once; holds each kernel against its plain
 PyTorch version at ragged small shapes and at every shape its path gives
 it, and times it (flash attention in bf16, on the tensor cores, at all
-five prefill layouts, and in f32, on the CUDA cores, at
-recurrentgemma-2b's; beside SDPA, and at the four without a window also
-SDPA's is_causal form); sums a
+nine prefill layouts, full-mask and rectangular ones too, and in f32, on
+the CUDA cores, at recurrentgemma-2b's; beside SDPA, and at the causal
+ones without a window also SDPA's is_causal form); sums a
 full-size stacked gradient with every EDST engine (per-tree, fused,
 pipelined at 1 and 4 segments, striped; 4x4 torus f32 and int8, ring 16
 int8); trains the full-width smollm-135m data-parallel over the 16
@@ -23,7 +23,11 @@ smollm-135m (batch 8, prompt 1024) and rwkv6-7b (batch 8, prompt 4096),
 32 greedy tokens each, and qwen2-7b (qkv bias), qwen3-8b (qk-norm),
 mistral-nemo-12b, olmoe-1b-7b and qwen2-moe-a2.7b (GShard MoE), batch 8,
 prompt 4096, 16 tokens each (flash attention at head_dim 128, also held
-and timed at their three prefill layouts), each model followed by an f32
+and timed at their three prefill layouts); and, through models/api.py
+and their modules, seamless-m4t-large-v2 (batch 8, 4096 frames, prompt
+4096; flash full-mask in the encoder and the cross-attention, causal in
+the decoder) and internvl2-2b (batch 8, 1024 patches, prompt 3072; flash
+causal at G = 2, D = 128), 16 tokens each; each model followed by an f32
 check that a decode step's logits equal those of a prefill of the same
 tokens; then trains
 ZeRO-1 over the torus (held to psum_dp, over the int8 wire, through the
@@ -448,23 +452,48 @@ def phase_kernels(dev):
     return rows
 
 
-# (b, s, h, kv, d, causal, window): the reference's five kernel-test
-# cases, then the two serving layouts at ragged lengths
-FLASH_SMALL = ((2, 128, 8, 2, 64, True, None), (1, 100, 4, 4, 32, True, None),
-               (2, 256, 8, 1, 128, True, 48), (1, 128, 2, 2, 64, False, None),
-               (1, 64, 4, 2, 128, True, None), (2, 333, 10, 1, 256, True, 100),
-               (3, 301, 9, 3, 64, True, None), (2, 40, 10, 1, 256, True, None),
-               (2, 129, 10, 1, 256, True, 65), (2, 127, 9, 3, 64, True, 63),
-               (1, 191, 10, 1, 128, True, 1), (1, 65, 4, 2, 32, True, 64),
-               (2, 77, 14, 2, 128, True, None), (1, 300, 28, 4, 128, True,
-                                                 None))
-# the prefill attention of each served model: (b, s, h, kv, d, window);
-# qwen3-8b's layout is mistral-nemo-12b's, olmoe-1b-7b's qwen2-moe-a2.7b's
-FLASH_PATH = {"recurrentgemma-2b": (8, 4096, 10, 1, 256, 2048),
-              "smollm-135m": (8, 1024, 9, 3, 64, None),
-              "qwen2-7b": (8, 4096, 28, 4, 128, None),
-              "qwen3-8b / mistral-nemo-12b": (8, 4096, 32, 8, 128, None),
-              "olmoe-1b-7b / qwen2-moe-a2.7b": (8, 4096, 16, 16, 128, None)}
+# (b, s, t, h, kv, d, causal, window), queries at 0..s-1 over keys at
+# 0..t-1: the reference's five kernel-test cases, then the serving
+# layouts at ragged lengths; last, the encdec and vlm layouts: full
+# (non-causal) with s < t and s > t, and a ragged t, and causal at G = 2,
+# D = 128 (internvl2-2b)
+FLASH_SMALL = ((2, 128, 128, 8, 2, 64, True, None),
+               (1, 100, 100, 4, 4, 32, True, None),
+               (2, 256, 256, 8, 1, 128, True, 48),
+               (1, 128, 128, 2, 2, 64, False, None),
+               (1, 64, 64, 4, 2, 128, True, None),
+               (2, 333, 333, 10, 1, 256, True, 100),
+               (3, 301, 301, 9, 3, 64, True, None),
+               (2, 40, 40, 10, 1, 256, True, None),
+               (2, 129, 129, 10, 1, 256, True, 65),
+               (2, 127, 127, 9, 3, 64, True, 63),
+               (1, 191, 191, 10, 1, 128, True, 1),
+               (1, 65, 65, 4, 2, 32, True, 64),
+               (2, 77, 77, 14, 2, 128, True, None),
+               (1, 300, 300, 28, 4, 128, True, None),
+               (2, 77, 128, 16, 16, 64, False, None),
+               (2, 129, 64, 8, 8, 64, False, None),
+               (1, 50, 333, 4, 4, 64, False, None),
+               (1, 200, 1024, 16, 16, 64, False, None),
+               (2, 301, 301, 16, 8, 128, True, None))
+# the prefill attention of each served model: (b, s, t, h, kv, d, causal,
+# window); qwen3-8b's layout is mistral-nemo-12b's, olmoe-1b-7b's
+# qwen2-moe-a2.7b's; seamless-m4t-large-v2's encoder and cross-attention
+# run the full mask (the same call: 4096 decoder tokens over 4096 frames)
+FLASH_PATH = {"recurrentgemma-2b": (8, 4096, 4096, 10, 1, 256, True, 2048),
+              "smollm-135m": (8, 1024, 1024, 9, 3, 64, True, None),
+              "qwen2-7b": (8, 4096, 4096, 28, 4, 128, True, None),
+              "qwen3-8b / mistral-nemo-12b": (8, 4096, 4096, 32, 8, 128, True,
+                                              None),
+              "olmoe-1b-7b / qwen2-moe-a2.7b": (8, 4096, 4096, 16, 16, 128,
+                                                True, None),
+              "seamless-m4t-large-v2 encoder": (8, 4096, 4096, 16, 16, 64,
+                                                False, None),
+              "seamless-m4t-large-v2 cross": (8, 4096, 4096, 16, 16, 64,
+                                              False, None),
+              "seamless-m4t-large-v2 decoder self": (8, 4096, 4096, 16, 16,
+                                                     64, True, None),
+              "internvl2-2b": (8, 4096, 4096, 16, 8, 128, True, None)}
 # (batch, prompt, generated tokens) served per model; the prompt of the
 # MoE models is a multiple of their groups (256, 512), which keeps the f32
 # decode check exact (see f32_decode_check)
@@ -472,6 +501,13 @@ SERVE = {"recurrentgemma-2b": (8, 4096, 32), "smollm-135m": (8, 1024, 32),
          "rwkv6-7b": (8, 4096, 32), "qwen2-7b": (8, 4096, 16),
          "qwen3-8b": (8, 4096, 16), "mistral-nemo-12b": (8, 4096, 16),
          "olmoe-1b-7b": (8, 4096, 16), "qwen2-moe-a2.7b": (8, 4096, 16)}
+# the encoder-decoder and VLM served through models/api.py and their
+# modules (launch/serve.py, as the reference's, serves decoder-only archs):
+# (batch, frames or patches, text prompt, generated tokens); the encoder
+# reads ENC_LEN_FOR_DECODE frames, and internvl2-2b's n_img_tokens patches
+# and its 3072-token text make the reference's 4096 prefill positions
+MM_SERVE = {"seamless-m4t-large-v2": (8, 4096, 4096, 16),
+            "internvl2-2b": (8, 1024, 3072, 16)}
 # the lm models held to the f32 check's limit with the bf16 KV cache too
 # (the others log that gap; see f32_decode_check)
 BF16_CACHE_HELD = ("smollm-135m",)
@@ -484,7 +520,9 @@ PATH_LAUNCHES = {
     **{arch: {"flash_attention": n, "rglru_scan": 0, "wkv6": 0}
        for arch, n in (("qwen2-7b", 28), ("qwen3-8b", 36),
                        ("mistral-nemo-12b", 40), ("olmoe-1b-7b", 16),
-                       ("qwen2-moe-a2.7b", 24))}}
+                       ("qwen2-moe-a2.7b", 24),
+                       # encoder 24 + decoder self 24 + cross 24
+                       ("seamless-m4t-large-v2", 72), ("internvl2-2b", 24))}}
 # (b, t, h, n, chunk): the reference kernel test's three shapes, then
 # ragged ones at N 64, 32 and 16 (a ragged last chunk, T < chunk)
 WKV_SMALL = ((2, 100, 3, 16, 32), (1, 64, 2, 64, 64), (2, 33, 4, 8, 16),
@@ -558,9 +596,9 @@ def phase_flash(dev):
                                                           bf16_kernel_bound)
     g = torch.Generator(device=dev).manual_seed(2)
 
-    def qkv(b, s, h, kv, d, dt):
-        return (torch.randn((b, s, n, d), generator=g, device=dev).to(dt)
-                for n in (h, kv, kv))
+    def qkv(b, s, t, h, kv, d, dt):
+        return (torch.randn((b, n_, n, d), generator=g, device=dev).to(dt)
+                for n_, n in ((s, h), (t, kv), (t, kv)))
 
     # the reference's tolerances: f32 sums in another order; bf16 one
     # rounding of the f32 output
@@ -584,44 +622,49 @@ def phase_flash(dev):
                                   "per-element bound", *where, share)
         return worst, share
 
-    for b, s, h, kv, d, causal, window in FLASH_SMALL:
+    for b, s, t, h, kv, d, causal, window in FLASH_SMALL:
         for dt in (torch.float32, torch.bfloat16):
-            check(*qkv(b, s, h, kv, d, dt), causal, window, b, s, h, kv, d)
+            check(*qkv(b, s, t, h, kv, d, dt), causal, window, b, s, t, h,
+                  kv, d)
     torch.cuda.synchronize()
     log("flash_attention: ragged shapes match the plain version")
 
     src = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
     replaces = "src/repro/kernels/flash_attention/kernel.py:85"
     timings = {}
-    for arch, (b, s, h, kv, d, window) in FLASH_PATH.items():
-        # bf16 on the tensor-core kernel at both shapes, and f32 on the
+    for arch, (b, s, t, h, kv, d, causal, window) in FLASH_PATH.items():
+        # bf16 on the tensor-core kernel at every shape, and f32 on the
         # CUDA-core kernel at recurrentgemma-2b's
         for dt in ((torch.bfloat16, torch.float32)
                    if arch == "recurrentgemma-2b" else (torch.bfloat16,)):
-            q, k, v = qkv(b, s, h, kv, d, dt)
-            err, share = check(q, k, v, True, window, arch)
+            q, k, v = qkv(b, s, t, h, kv, d, dt)
+            err, share = check(q, k, v, causal, window, arch)
             torch.cuda.empty_cache()
-            pos = torch.arange(s, device=dev)
-            mask = pos[None, :] <= pos[:, None]
-            if window:
-                mask &= pos[None, :] > pos[:, None] - window
+            mask = None         # full: SDPA without a mask is the function
+            if causal:
+                pos = torch.arange(s, device=dev)
+                mask = pos[None, :] <= pos[:, None]
+                if window:
+                    mask &= pos[None, :] > pos[:, None] - window
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, q))
-            ops = 4 * b * h * d * live_pairs(s, window)
+            ops = 4 * b * h * d * (live_pairs(s, window) if causal else s * t)
             name = "bf16" if dt == torch.bfloat16 else "f32"
             log(f"flash_attention at {arch}'s prefill {tuple(q.shape)} / "
-                f"{tuple(k.shape)} {name}, window {window}: {ops:.4g} "
-                f"operations; max|err| {err!r}"
+                f"{tuple(k.shape)} {name}, "
+                f"{'causal' if causal else 'full'}, window {window}: "
+                f"{ops:.4g} operations; max|err| {err!r}"
                 + (f", {share!r} of the per-element bound" if share else ""))
             row = timed_row(
                 "flash_attention", src, replaces, err,
-                lambda: FK.flash_attention(q, k, v, window=window),
-                lambda: attention_ref(q, k, v, window=window),
+                lambda: FK.flash_attention(q, k, v, causal=causal,
+                                           window=window),
+                lambda: attention_ref(q, k, v, causal=causal, window=window),
                 lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=mask, enable_gqa=True),
                 nbytes, ops,
                 BF16_OPS_PER_S if dt == torch.bfloat16 else F32_OPS_PER_S)
-            if not window:
+            if causal and not window:
                 # no window: the same function is SDPA's is_causal form
                 row["library_ms_is_causal"] = timed(
                     lambda: F.scaled_dot_product_attention(
@@ -860,29 +903,99 @@ def counts():
 
 @contextlib.contextmanager
 def layer_readout():
-    """While open, every transformer layer's output at the last position
-    goes to ``rec["x"]`` and every MoE router's chosen experts to
-    ``rec["idx"]``, for the f32 check's per-layer log.  It wraps
-    ``transformer._block`` and ``moe.route`` for its duration."""
-    from repro_torch.models import moe, transformer as T
+    """While open, every transformer (and encdec decoder) layer's output
+    at the last position goes to ``rec["x"]`` and every MoE router's
+    chosen experts to ``rec["idx"]``, for the f32 check's per-layer log.
+    It wraps ``transformer._block``, ``encdec._dec_block`` and
+    ``moe.route`` for its duration."""
+    from repro_torch.models import encdec, moe, transformer as T
     rec = {"x": [], "idx": []}
-    block, route = T._block, moe.route
+    block, dec_block, route = T._block, encdec._dec_block, moe.route
 
-    def _block(*args, **kw):
-        out, aux = block(*args, **kw)
-        rec["x"].append(out[:, -1].clone())
-        return out, aux
+    def readout(fn):
+        def wrapped(*args, **kw):
+            out, extra = fn(*args, **kw)
+            rec["x"].append(out[:, -1].clone())
+            return out, extra
+        return wrapped
 
     def _route(*args):
         r = route(*args)
         rec["idx"].append(r[3].clone())     # a view of the whole sort
         return r
 
-    T._block, moe.route = _block, _route
+    T._block, encdec._dec_block = readout(block), readout(dec_block)
+    moe.route = _route
     try:
         yield rec
     finally:
-        T._block, moe.route = block, route
+        T._block, encdec._dec_block, moe.route = block, dec_block, route
+
+
+def mm_prefill(cfg, model, params, src, prompts, gen, cache_dtype):
+    """The prefill an encdec or vlm server runs, through ``model``
+    (``api.build(cfg)``) and the family's module, every attention on the
+    flash kernel: for encdec ``encode``, ``cross_kv`` and ``decode`` into
+    a fresh ``cache_dtype`` self cache at ``cache_len`` 0; for vlm
+    ``forward`` of the patches ``src`` and the prompts into a fresh cache.
+    Returns the last logits (B, vocab_padded) and the decode state."""
+    from repro_torch.models import encdec, vlm
+    b, n = prompts.shape
+    if cfg.family == "encdec":
+        enc = encdec.encode(cfg, params, src, fresh=True)
+        ckv = encdec.cross_kv(cfg, params, enc)
+        del enc
+        cache = encdec.init_cache(cfg, b, n + gen, dtype=cache_dtype,
+                                  device=src.device)
+        logits, cache = encdec.decode(cfg, params, prompts, self_cache=cache,
+                                      cache_len=0, ckv=ckv, last_only=True,
+                                      fresh=True)
+        return logits[:, -1], (cache, ckv)
+    n_img = src.shape[1]
+    cache = vlm.init_cache(cfg, b, n_img + n + gen, dtype=cache_dtype,
+                           device=src.device)
+    logits, cache = vlm.forward(cfg, params, prompts, src, cache=cache,
+                                cache_len=0, last_only=True, fresh=True)
+    return logits[:, -1], (cache, n_img)
+
+
+def mm_decode(cfg, model, params, state, tok, n):
+    """One greedy step through ``model.decode_fn``: ``tok`` (B, 1) the
+    text token at position ``n``.  Returns the logits and the state."""
+    cache, extra = state
+    if cfg.family == "encdec":
+        logits, cache = model.decode_fn(params, cache, {
+            "tokens": tok, "cache_len": n, "cross_k": extra[0],
+            "cross_v": extra[1]})
+    else:
+        logits, cache = model.decode_fn(params, cache, {
+            "tokens": tok, "cache_len": extra + n})
+    return logits, (cache, extra)
+
+
+def mm_serve(cfg, model, params, src, prompts, gen):
+    """Serve one batch as ``launch/serve.py`` does: the prefill, then
+    ``gen - 1`` greedy decode steps, bf16 caches; returns ``(tokens,
+    prefill seconds, decode tok/s, last logits)``."""
+    import torch
+    b, n = prompts.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = mm_prefill(cfg, model, params, src, prompts, gen,
+                               torch.bfloat16)
+    tok = logits[:, :cfg.vocab].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    out = [tok]
+    t0 = time.perf_counter()
+    for i in range(gen - 1):
+        logits, state = mm_decode(cfg, model, params, state, tok, n + i)
+        tok = logits[:, :cfg.vocab].argmax(-1)[:, None]
+        out.append(tok)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rate = (gen - 1) * b / dt if gen > 1 else 0.0
+    return torch.cat(out, dim=1), prefill_s, rate, logits
 
 
 def f32_decode_check(dev, arch, prompt):
@@ -897,55 +1010,96 @@ def f32_decode_check(dev, arch, prompt):
     7, 40 and 4 times those readings; with the f32 cache below, 4.9e-6
     to 5.6e-6 (qwen2-7b, qwen3-8b, mistral-nemo-12b), 1.97e-5
     (olmoe-1b-7b) and 6.90e-5 (qwen2-moe-a2.7b, 1.45 times under it).
+    The encdec and vlm models (``MM_SERVE``) prefill as they are served
+    (:func:`mm_prefill`, the cache filled at ``cache_len`` 0) and, with
+    the f32 cache, hold the decode step to ``api.prefill_fn`` of the
+    longer prompt, the cache-less prefill, with the same frames or
+    patches: for seamless-m4t-large-v2 its cross-attention runs 4097
+    decoder tokens over 4096 frames.  On an H100 80GB HBM3 at 700 W:
+    1.5e-6 (seamless-m4t-large-v2) and 8.9e-6 (internvl2-2b) of the
+    largest logit.
 
-    The lm and moe families run it twice: with an f32 KV cache, and with
-    the bf16 one that serving writes.  The two prefills' matmuls of
-    different lengths may round a prompt key's last f32 bits apart, and a
-    bf16 cache can turn that into one-ulp flips that add up layer by
-    layer; so with the bf16 cache only the models of ``BF16_CACHE_HELD``
-    are held to the limit and the others' gap is logged, and with the f32
-    cache every model is held to it.  Each run logs, layer by layer, the
-    gap between the new token's hidden states in the decode and in the
-    second prefill.  For the MoE models ``prompt`` is a multiple of the
-    group size: the first ``prompt`` tokens form the same groups in both
-    prefills, and the new token heads a group of its own and keeps every
-    choice, as in decode's group of one.  The routing is not the same in
-    the two prefills all the same: their products run at other shapes,
-    and a prompt token near a tie tips to another expert, with its
+    The lm, moe, encdec and vlm families run it twice: with an f32 KV
+    cache, and with the bf16 one that serving writes.  The two prefills'
+    matmuls of different lengths may round a prompt key's last f32 bits
+    apart, and a bf16 cache can turn that into one-ulp flips that add up
+    layer by layer; so with the bf16 cache only the models of
+    ``BF16_CACHE_HELD`` are held to the limit and the others' gap is
+    logged, and with the f32 cache every model is held to it.  Each run
+    logs, layer by layer, the gap between the new token's hidden states in
+    the decode and in the second prefill.  For the MoE models ``prompt`` is
+    a multiple of the group size: the first ``prompt`` tokens form the same
+    groups in both prefills, and the new token heads a group of its own and
+    keeps every choice, as in decode's group of one.  The routing is not the
+    same in the two prefills all the same: their products run at other
+    shapes, and a prompt token near a tie tips to another expert, with its
     group's drops.  On an H100 qwen2-moe-a2.7b's f32 run tipped 1 of the
-    32768 prompt tokens at layer 0 and 420 at layer 23, and the new
-    token's hidden-state gap grew from 3.3e-6 to 7.5e-5 of its largest;
-    olmoe-1b-7b's tipped none.  Each run logs, per layer, the prompt
-    tokens routed differently in the two prefills and the new tokens
-    routed differently in the decode and the second prefill."""
+    32768 prompt tokens at layer 0 and 420 at layer 23, and the new token's
+    hidden-state gap grew from 3.3e-6 to 7.5e-5 of its largest;
+    olmoe-1b-7b's tipped none.  Each run logs, per layer, the prompt tokens
+    routed differently in the two prefills and the new tokens routed
+    differently in the decode and the second prefill."""
     import dataclasses
 
     import torch
     from repro_torch import configs
     from repro_torch.launch.serve import model_fns
+    from repro_torch.models import api
     from repro_torch.models import transformer as T
     cfg = dataclasses.replace(configs.get(arch), act_dtype_name="float32")
-    init, served_prefill, decode = model_fns(cfg)
-    b = SERVE[arch][0]
+    model = api.build(cfg)
+    mm = cfg.family in ("encdec", "vlm")
+    b = (MM_SERVE[arch] if mm else SERVE[arch])[0]
 
-    def f32_cache_prefill(params, tokens, max_len):
-        """``T.prefill`` with an f32 cache."""
-        cache = T.init_cache(cfg, tokens.shape[0], max_len,
-                             dtype=torch.float32, device=dev)
-        logits = T.forward(cfg, params, tokens, cache=cache, cache_len=0,
-                           last_only=True)
-        return logits[:, -1], cache
-
-    # (what the run's KV cache holds, its prefill, held to the limit)
-    runs = ((("f32 cache", f32_cache_prefill, True),
-             ("bf16 cache", served_prefill, arch in BF16_CACHE_HELD))
-            if cfg.family in ("lm", "moe") else (("", served_prefill, True),))
     with torch.inference_mode():
-        params = init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
         gen = torch.Generator(device=dev).manual_seed(1)
+        if mm:
+            _, n_src, _, _ = MM_SERVE[arch]
+            src = torch.randn((b, n_src, cfg.d_model), generator=gen,
+                              device=dev)
+            key = "frames" if cfg.family == "encdec" else "patches"
         prompts = torch.randint(0, cfg.vocab, (b, prompt), generator=gen,
                                 device=dev)
-        for cache, prefill, held in runs:
+        if mm:
+            def prefill_with(dtype):
+                def prefill(params, tokens, _):
+                    return mm_prefill(cfg, model, params, src, tokens, 1,
+                                      dtype)
+                return prefill
+
+            def decode(params, state, tok, n):
+                return mm_decode(cfg, model, params, state, tok, n)
+
+            def cacheless(params, tokens, _):
+                return model.prefill_fn(params, {key: src, "tokens": tokens})
+            # (what the run's KV cache holds, its prefill, the prefill of
+            # the longer prompt, held to the limit): with the f32 cache
+            # the cache-less prefill; with the bf16 one, as for the lm
+            # models, the served prefill, whose fresh keys round through
+            # the cache's dtype as the decode's cached ones do
+            served = prefill_with(torch.bfloat16)
+            runs = (("f32 cache", prefill_with(torch.float32), cacheless,
+                     True),
+                    ("bf16 cache", served, served, False))
+        else:
+            served_prefill, decode = model_fns(cfg)
+
+            def f32_cache_prefill(params, tokens, max_len):
+                """``T.prefill`` with an f32 cache."""
+                cache = T.init_cache(cfg, tokens.shape[0], max_len,
+                                     dtype=torch.float32, device=dev)
+                logits = T.forward(cfg, params, tokens, cache=cache,
+                                   cache_len=0, last_only=True)
+                return logits[:, -1], cache
+
+            runs = ((("f32 cache", f32_cache_prefill, f32_cache_prefill,
+                      True),
+                     ("bf16 cache", served_prefill, served_prefill,
+                      arch in BF16_CACHE_HELD))
+                    if cfg.family in ("lm", "moe")
+                    else (("", served_prefill, served_prefill, True),))
+        for cache, prefill, full, held in runs:
             tag = f"f32 check {arch}" + (f", {cache}" if cache else "")
             torch.cuda.reset_peak_memory_stats()
             with layer_readout() as first:
@@ -955,12 +1109,12 @@ def f32_decode_check(dev, arch, prompt):
                 dec = decode(params, caches, tok, prompt)[0]
             del caches
             with layer_readout() as second:
-                full = prefill(params, torch.cat([prompts, tok], 1),
-                               prompt + 1)[0]
-            dec, full = dec[:, :cfg.vocab], full[:, :cfg.vocab]
-            err = max_err(dec, full)
-            scale = float(full.abs().max())
-            same = bool((dec.argmax(-1) == full.argmax(-1)).all())
+                full_logits = full(params, torch.cat([prompts, tok], 1),
+                                   prompt + 1)[0]
+            dec, full_logits = dec[:, :cfg.vocab], full_logits[:, :cfg.vocab]
+            err = max_err(dec, full_logits)
+            scale = float(full_logits.abs().max())
+            same = bool((dec.argmax(-1) == full_logits.argmax(-1)).all())
             tol = 1e-4 * max(1.0, scale)
             log(f"{tag}: decode at {prompt} vs prefill of {prompt + 1}: "
                 f"max|dlogit| {err!r} {'<=' if err <= tol else '>'} {tol!r} "
@@ -995,12 +1149,16 @@ def f32_decode_check(dev, arch, prompt):
 def phase_serve(dev):
     """Full-width serving through the entry point, one run per model, each
     counted from 0 just before it and read just after; then the f32 check
-    of each.  Each counted run follows an uncounted one at the same shape
-    (one token), so its prefill is timed warm: the memory pool already
-    grown and each matmul shape's first cuBLAS call behind it.  Returns
-    ``{run: {kernel: launches}}``."""
+    of each.  The encdec and vlm models (``MM_SERVE``), which the entry
+    point refuses as the reference's does, are served by :func:`mm_serve`
+    through ``models/api.py`` and their modules.  Each counted run follows
+    an uncounted one at the same shape (one token), so its prefill is
+    timed warm: the memory pool already grown and each matmul shape's
+    first cuBLAS call behind it.  Returns ``{run: {kernel: launches}}``."""
     import torch
+    from repro_torch import configs
     from repro_torch.launch import serve
+    from repro_torch.models import api
     per_run = {}
     for arch, (batch, prompt, gen) in SERVE.items():
         argv = ["--arch", arch, "--batch", str(batch), "--prompt-len",
@@ -1028,6 +1186,43 @@ def phase_serve(dev):
         for name, n in PATH_LAUNCHES[arch].items():
             assert c[name] == n, (tag, name, c[name], n)
         del res
+        f32_decode_check(dev, arch, prompt)
+    for arch, (batch, n_src, prompt, gen) in MM_SERVE.items():
+        cfg = configs.get(arch)
+        model = api.build(cfg)
+        torch.cuda.empty_cache()
+        with torch.inference_mode():
+            params = model.init(torch.Generator(device=dev).manual_seed(0),
+                                dev)
+            g = torch.Generator(device=dev).manual_seed(1)
+            src = torch.randn((batch, n_src, cfg.d_model), generator=g,
+                              device=dev, dtype=torch.bfloat16)
+            prompts = torch.randint(0, cfg.vocab, (batch, prompt),
+                                    generator=g, device=dev)
+            cold = mm_serve(cfg, model, params, src, prompts, 1)[1]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_all()
+            t0 = time.perf_counter()
+            tokens, prefill_s, rate, last = mm_serve(cfg, model, params, src,
+                                                     prompts, gen)
+            torch.cuda.synchronize()
+        tag = f"serve {arch}"
+        per_run[tag] = c = counts()
+        peak = torch.cuda.max_memory_allocated()
+        what = "frames" if cfg.family == "encdec" else "patches"
+        log(f"{tag}: batch {batch} x {n_src} {what} + prompt {prompt}, {gen} "
+            f"tokens, bf16, api.build + {cfg.family} modules: prefill "
+            f"{prefill_s!r}s warm, {cold!r}s cold "
+            f"({batch * (n_src + prompt) / prefill_s!r} positions/s warm), "
+            f"decode {rate!r} tok/s, peak memory {peak / 1e9:.2f} GB, "
+            f"{time.perf_counter() - t0:.1f}s in all, launches {c}")
+        log(f"{tag}: first row {tokens[0].tolist()}")
+        assert tuple(tokens.shape) == (batch, gen), tokens.shape
+        assert bool(torch.isfinite(last.float()).all()), tag
+        for name, n in PATH_LAUNCHES[arch].items():
+            assert c[name] == n, (tag, name, c[name], n)
+        del params, src, prompts, tokens, last
         f32_decode_check(dev, arch, prompt)
     return per_run
 

@@ -12,6 +12,23 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 
 @dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+# the LM-family shape set: every arch pairs with these four
+LM_SHAPES = (
+    ShapeSpec("train_4k", 4_096, 256, "train"),
+    ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    ShapeSpec("long_500k", 524_288, 1, "decode"),
+)
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     name: str
     family: str                      # lm | moe | encdec | vlm | rglru | rwkv6
@@ -52,6 +69,10 @@ class ArchConfig:
     remat: bool = True
     q_block: int = 1_024
     kv_block: int = 1_024
+    # serve-time (prefill/decode) attention blocks of the reference's
+    # blockwise attention (the port's prefill runs the flash kernel)
+    serve_q_block: int = 4_096
+    serve_kv_block: int = 4_096
     aux_loss_weight: float = 0.01
     tp_divisor: int = 16             # model-axis size params get padded for
     skip_shapes: tuple = ()
@@ -80,6 +101,16 @@ class ArchConfig:
     @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
+
+    @property
+    def shapes(self) -> tuple:
+        return tuple(s for s in LM_SHAPES if s.name not in self.skip_shapes)
+
+    def shape(self, name: str) -> ShapeSpec:
+        for s in LM_SHAPES:
+            if s.name == name:
+                return s
+        raise KeyError(name)
 
     def param_count(self) -> int:
         """Approximate parameter count N (for MODEL_FLOPS = 6 N D)."""

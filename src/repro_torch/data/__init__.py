@@ -1,3 +1,3 @@
-from .pipeline import SyntheticLMStream
+from .pipeline import SyntheticLMStream, make_batch_for
 
-__all__ = ["SyntheticLMStream"]
+__all__ = ["SyntheticLMStream", "make_batch_for"]

@@ -1,5 +1,6 @@
 """Deterministic, host-shardable synthetic LM data pipeline (own copy of
-the reference's ``repro.data.pipeline.SyntheticLMStream``).
+the reference's ``repro.data.pipeline``: ``SyntheticLMStream`` and
+``make_batch_for``).
 
 Generates a structured token stream (a Zipf-ish unigram mix with short-range
 Markov structure so the LM has something learnable), deterministically keyed
@@ -50,3 +51,28 @@ class SyntheticLMStream:
             out[:, t] = np.where(use_markov, succ_pick, fresh)
         return out
 
+
+
+def make_batch_for(cfg, shape, step: int = 0, seed: int = 0,
+                   n_hosts: int = 1, host_id: int = 0) -> dict:
+    """Concrete numpy batch matching ``ModelAPI.input_specs(shape)``."""
+    rng = np.random.RandomState(seed * 7919 + step)
+    gb, s = shape.global_batch, shape.seq_len
+    f = cfg.family
+    if shape.kind == "train":
+        if f == "encdec":
+            stream = SyntheticLMStream(cfg.vocab, s, gb, seed, n_hosts,
+                                       host_id)
+            return {"frames": rng.randn(gb // n_hosts, s, cfg.d_model)
+                    .astype(np.float32), "tokens": stream.batch(step)}
+        if f == "vlm":
+            n_txt = s - cfg.n_img_tokens
+            stream = SyntheticLMStream(cfg.vocab, n_txt, gb, seed, n_hosts,
+                                       host_id)
+            return {"patches": rng.randn(gb // n_hosts, cfg.n_img_tokens,
+                                         cfg.d_model).astype(np.float32),
+                    "tokens": stream.batch(step)}
+        stream = SyntheticLMStream(cfg.vocab, s, gb, seed, n_hosts, host_id)
+        return {"tokens": stream.batch(step)}
+    raise ValueError("make_batch_for is a training-data helper; serving "
+                     "inputs come from ModelAPI.input_specs")

@@ -1,6 +1,8 @@
 """Batched serving entry point of the port: prefill a batch of prompts,
 then decode greedily with the KV cache (``lm``, ``moe``), the KV and
-recurrent caches (``rglru``) or the WKV state (``rwkv6``).
+recurrent caches (``rglru``) or the WKV state (``rwkv6``).  Parameters come
+from ``models.api.build(cfg).init``.  As the reference's serve, it
+supports the decoder-only families and refuses ``encdec`` and ``vlm``.
 
 Runs on the CUDA device unless ``--device cpu`` is given; with no CUDA
 device and no ``--device cpu`` it raises rather than carry on on the CPU.
@@ -27,6 +29,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.core.device import resolve_device
+from repro_torch.models import api
 from repro_torch.models import rglru as G
 from repro_torch.models import rwkv6 as W
 from repro_torch.models import transformer as T
@@ -55,24 +58,22 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
+DECODER_ONLY = ("lm", "moe", "rglru", "rwkv6")
+
+
 def model_fns(cfg):
-    """``(init, prefill(params, prompts, max_len), decode_step)`` of the
-    config's family."""
+    """``(prefill(params, prompts, max_len), decode_step)`` of the config's
+    decoder-only family."""
     if cfg.family in ("lm", "moe"):
-        return (T.init_lm,
-                lambda p, tok, n: T.prefill(cfg, p, tok, n),
+        return (lambda p, tok, n: T.prefill(cfg, p, tok, n),
                 lambda p, c, tok, n: T.decode_step(cfg, p, c, tok, n))
     if cfg.family == "rglru":
-        return (G.init_rglru_model,
-                lambda p, tok, n: G.prefill(cfg, p, tok),
+        return (lambda p, tok, n: G.prefill(cfg, p, tok),
                 lambda p, c, tok, n: G.decode_step(cfg, p, c, tok, n))
     if cfg.family == "rwkv6":       # the state does not grow: no lengths
-        return (W.init_rwkv6_model,
-                lambda p, tok, n: W.prefill(cfg, p, tok),
+        return (lambda p, tok, n: W.prefill(cfg, p, tok),
                 lambda p, c, tok, n: W.decode_step(cfg, p, c, tok))
-    raise NotImplementedError(
-        f"{cfg.name}: the {cfg.family!r} family is not ported yet (ROADMAP "
-        "Queue 1: encdec and vlm)")
+    raise ValueError(f"serve supports decoder-only archs, not {cfg.family}")
 
 
 @torch.inference_mode()
@@ -84,9 +85,12 @@ def main(argv=None) -> ServeResult:
     cfg = configs.get(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    init, prefill, decode = model_fns(cfg)
-    params = init(cfg, torch.Generator(device=device).manual_seed(args.seed),
-                  device)
+    if cfg.family not in DECODER_ONLY:
+        raise SystemExit(f"serve demo supports decoder-only archs, not "
+                         f"{cfg.family}")
+    prefill, decode = model_fns(cfg)
+    params = api.build(cfg).init(
+        torch.Generator(device=device).manual_seed(args.seed), device)
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                             generator=gen, device=device)

@@ -1,7 +1,7 @@
 """Shared layers of the port's models: the stacked-layer init, norms (RMS,
-and the layer norm of ``rwkv6``), rotary embeddings, GQA attention (with
-the optional qkv bias and qk-norm), the gated MLP, embeddings and the
-chunked cross-entropy.
+and the layer norm of ``rwkv6`` and ``encdec``), rotary embeddings, GQA
+attention (with the optional qkv bias and qk-norm, causal or full), the
+gated and the dense GELU MLP, embeddings and the chunked cross-entropy.
 
 Parameters are plain dicts of tensors that mirror the reference's tree key
 for key (``repro/models/layers.py``).  The casts follow the reference
@@ -129,7 +129,9 @@ class AttnCfg:
     qkv_bias: bool = False
     qk_norm: bool = False
     window: int | None = None       # sliding-window size (None = full)
+    causal: bool = True
     rope_theta: float = 10000.0
+    use_rope: bool = True
 
 
 def init_attention(gen, cfg: AttnCfg, device="cpu"):
@@ -153,8 +155,9 @@ def init_attention(gen, cfg: AttnCfg, device="cpu"):
 
 def attention(p, cfg: AttnCfg, x, positions, *, kv_cache=None,
               cache_len=None, cache_write_idx=None, cache_positions=None,
-              fresh=False):
-    """Causal self-attention; returns ``(out, new_cache)``.
+              mask_mode="causal", fresh=False):
+    """Self-attention, ``mask_mode`` "causal" or "full" (an encoder);
+    returns ``(out, new_cache)``.
 
     x: (B, S, d); positions: (S,) int.  Without a cache, ``new_cache`` is
     the fresh ``(k, v)``.  kv_cache: ``(k_cache, v_cache)`` of shape
@@ -165,9 +168,10 @@ def attention(p, cfg: AttnCfg, x, positions, *, kv_cache=None,
 
     ``fresh=True`` is a prefill: the positions are 0..S-1 and the queries
     see only the S fresh keys (no cache, or an empty one), so attention
-    runs through the flash attention kernel.  Otherwise (training, decode)
-    it is the plain :func:`sdpa`, as the reference computes it outside
-    any kernel.
+    runs through the flash attention kernel (``causal=False`` for a full
+    mask, which ignores the window as the reference's mask does).
+    Otherwise (training, decode) it is the plain :func:`sdpa`, as the
+    reference computes it outside any kernel.
     """
     dt = x.dtype
     s = x.shape[1]
@@ -181,8 +185,9 @@ def attention(p, cfg: AttnCfg, x, positions, *, kv_cache=None,
     if cfg.qk_norm:     # the reference's _headwise_rms: rmsnorm over hd
         q = rmsnorm({"scale": p["q_norm"]}, q)
         k = rmsnorm({"scale": p["k_norm"]}, k)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if cfg.use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     kv_pos, valid_len, new_cache = positions, None, (k, v)
     if kv_cache is not None:
         kc, vc = kv_cache
@@ -202,9 +207,12 @@ def attention(p, cfg: AttnCfg, x, positions, *, kv_cache=None,
                 kv_pos = torch.arange(kc.shape[1], device=x.device)
                 valid_len = cache_len + s
     if fresh:
-        out = flash_attention(q, k, v, causal=True, window=cfg.window)
+        causal = mask_mode == "causal"
+        out = flash_attention(q, k, v, causal=causal,
+                              window=cfg.window if causal else None)
     else:
-        out = sdpa(q, k, v, positions, kv_pos, cfg, valid_len=valid_len)
+        out = sdpa(q, k, v, positions, kv_pos, cfg, mask_mode,
+                   valid_len=valid_len)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt)), new_cache
 
 
@@ -266,6 +274,19 @@ def glu_mlp(p, x, kind="swiglu"):
     g = torch.einsum("bsd,df->bsf", x, p["wi_gate"].to(dt))
     u = torch.einsum("bsd,df->bsf", x, p["wi_up"].to(dt))
     return torch.einsum("bsf,fd->bsd", act(g) * u, p["wo"].to(dt))
+
+
+def init_dense_mlp(gen, d, f, device="cpu"):
+    return {"wi": ninit(gen, (d, f), device=device),
+            "wo": ninit(gen, (f, d), device=device)}
+
+
+def dense_mlp(p, x):
+    # jax.nn.gelu defaults to the tanh approximation
+    dt = x.dtype
+    h = torch.nn.functional.gelu(
+        torch.einsum("bsd,df->bsf", x, p["wi"].to(dt)), approximate="tanh")
+    return torch.einsum("bsf,fd->bsd", h, p["wo"].to(dt))
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.rglru.ops import lru_scan
+from ..kernels.rglru.ref import rglru_ref
 from . import layers as L
 from .transformer import _unbind, attn_cfg
 
@@ -92,10 +93,11 @@ def init_rglru_model(cfg, gen: torch.Generator, device="cpu"):
 # RG-LRU block
 # ---------------------------------------------------------------------------
 
-def rec_block(cfg, lp, x, *, state=None, conv_buf=None):
+def rec_block(cfg, lp, x, *, state=None, conv_buf=None, plain=False):
     """Griffin recurrent block.  Returns ``(out, new_state, new_conv_tail)``;
     one token with a state is a plain decode step, anything else runs the
-    scan (from ``state``, or zeros)."""
+    scan (from ``state``, or zeros): the kernel, or with ``plain`` its
+    plain version (the loss, under autograd)."""
     h = L.rmsnorm(lp["ln"], x)
     dt = h.dtype
     gate = F.gelu(torch.einsum("bsd,dw->bsw", h, lp["w_gate"].to(dt)),
@@ -127,7 +129,7 @@ def rec_block(cfg, lp, x, *, state=None, conv_buf=None):
         hs = (a[:, 0] * state + bx[:, 0])[:, None]
         new_state = hs[:, 0]
     else:
-        hs, new_state = lru_scan(a, bx, state)
+        hs, new_state = (rglru_ref if plain else lru_scan)(a, bx, state)
     out = torch.einsum("bsw,wd->bsd", gate * hs.to(gate.dtype),
                        lp["wo"].to(gate.dtype))
     return out, new_state, new_conv_tail
@@ -148,13 +150,16 @@ def _ring(k, positions, wnd):
 
 
 def forward(cfg, params, tokens, *, caches=None, cache_len=None,
-            last_only=False):
-    """Returns ``(logits, caches)``.
+            last_only=False, return_hidden=False, plain=False):
+    """Returns ``(logits, caches)`` (the final-normed hidden states in
+    place of the logits with ``return_hidden``).
 
     caches: the decode state (see :func:`init_cache`), updated in place.
     Without caches the call is a prefill (the reference's ``collect``
     mode): it builds fresh caches from a full pass, and its attention runs
-    through the flash attention kernel."""
+    through the flash attention kernel and its scans through the RG-LRU
+    kernel; with ``plain`` (the loss) through the plain ``sdpa`` and the
+    plain scan, as the reference trains."""
     kinds = _layer_kinds(cfg)
     acfg = attn_cfg(cfg)
     x = L.embed(params["embed"], tokens, dtype=cfg.act_dtype)
@@ -177,7 +182,7 @@ def forward(cfg, params, tokens, *, caches=None, cache_len=None,
             state = caches["state"][ri] if decode_mode else None
             buf = caches["conv"][ri] if decode_mode else None
             o, new_state, new_buf = rec_block(cfg, rec[ri], x, state=state,
-                                              conv_buf=buf)
+                                              conv_buf=buf, plain=plain)
             x = x + o
             if decode_mode:
                 caches["state"][ri] = new_state
@@ -197,7 +202,7 @@ def forward(cfg, params, tokens, *, caches=None, cache_len=None,
                     cache_positions=caches["kv_pos"])
             else:
                 o, (k, v) = L.attention(ap["attn"], acfg, h, positions,
-                                        fresh=True)
+                                        fresh=not plain)
                 out_caches["kv_k"].append(_ring(k, positions, wnd))
                 out_caches["kv_v"].append(_ring(v, positions, wnd))
             x = x + o
@@ -208,7 +213,7 @@ def forward(cfg, params, tokens, *, caches=None, cache_len=None,
     if last_only:
         x = x[:, -1:]
     x = L.rmsnorm(params["final_norm"], x)
-    logits = L.unembed(params["embed"], x, cfg.vocab)
+    logits = x if return_hidden else L.unembed(params["embed"], x, cfg.vocab)
 
     if decode_mode:
         return logits, caches
@@ -220,6 +225,17 @@ def forward(cfg, params, tokens, *, caches=None, cache_len=None,
     kv_pos[positions[-take:] % wnd] = positions[-take:].to(torch.int32)
     new_caches["kv_pos"] = kv_pos
     return logits, new_caches
+
+
+def loss_fn(cfg, params, batch):
+    """Next-token loss on ``batch["tokens"]`` (B, S + 1), through the
+    plain attention and scan."""
+    tokens = batch["tokens"]
+    hidden, _ = forward(cfg, params, tokens[:, :-1], return_hidden=True,
+                        plain=True)
+    loss = L.chunked_unembed_xent(params["embed"], hidden, tokens[:, 1:],
+                                  cfg.vocab)
+    return loss, {"xent": loss}
 
 
 def init_cache(cfg, batch, max_len, dtype=torch.bfloat16, device="cpu"):

@@ -1,5 +1,5 @@
 """RWKV-6 "Finch" (``rwkv6`` family, the reference's
-``repro/models/rwkv6.py``), for serving [arXiv:2404.05892].
+``repro/models/rwkv6.py``), for serving and its loss [arXiv:2404.05892].
 
 Time-mix: token-shift ddlerp (5 streams r, k, v, w, g with a shared
 low-rank data-dependent adjustment), per-channel data-dependent decay
@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.wkv6.ops import wkv
+from ..kernels.wkv6.ref import wkv6_ref
 from . import layers as L
 from .transformer import _unbind
 
@@ -117,11 +118,12 @@ def _ddlerp(p, x, sx):
     return mixed.unbind(-2)
 
 
-def time_mix(cfg, p, x, *, state=None, last=None):
+def time_mix(cfg, p, x, *, state=None, last=None, plain=False):
     """state: (B, H, N, N) WKV state; last: (B, d) previous token (decode).
     Returns ``(out, new_state, new_last)``; one token with a state is a
     plain decode step, anything else runs the WKV6 kernel (from
-    ``state``, or zeros)."""
+    ``state``, or zeros), or with ``plain`` (the loss, under autograd) its
+    plain chunked version."""
     b, s, d = x.shape
     h, n = cfg.n_heads, cfg.head_size
     dt = x.dtype
@@ -144,7 +146,8 @@ def time_mix(cfg, p, x, *, state=None, last=None):
                                  p["u"], state)
         o = o[:, None]
     else:
-        o, new_state = wkv(rh, kh, vh, wh, p["u"], state)
+        o, new_state = (wkv6_ref if plain else wkv)(rh, kh, vh, wh, p["u"],
+                                                    state)
     # per-head group norm, then the gate
     o32 = o.float()
     o32 = o32 * torch.rsqrt((o32 * o32).mean(-1, keepdim=True) + 1e-6)
@@ -171,8 +174,11 @@ def channel_mix(p, x, *, last=None):
 # model
 # ---------------------------------------------------------------------------
 
-def forward(cfg, params, tokens, *, caches=None, last_only=False):
-    """Returns ``(logits, caches)``.
+def forward(cfg, params, tokens, *, caches=None, last_only=False,
+            return_hidden=False, plain=False):
+    """Returns ``(logits, caches)`` (the final-normed hidden states in
+    place of the logits with ``return_hidden``; ``plain`` as in
+    :func:`time_mix`).
 
     caches: the decode state (see :func:`init_cache`), updated in place.
     Without caches the call is a prefill: it builds fresh caches (each
@@ -186,7 +192,8 @@ def forward(cfg, params, tokens, *, caches=None, last_only=False):
         st = caches["state"][li] if decode_mode else None
         l1 = caches["last_tm"][li] if decode_mode else None
         l2 = caches["last_cm"][li] if decode_mode else None
-        o, new_state, new_l1 = time_mix(cfg, lp, x, state=st, last=l1)
+        o, new_state, new_l1 = time_mix(cfg, lp, x, state=st, last=l1,
+                                        plain=plain)
         x = x + o
         o2, new_l2 = channel_mix(lp, x, last=l2)
         x = x + o2
@@ -201,10 +208,21 @@ def forward(cfg, params, tokens, *, caches=None, last_only=False):
     if last_only:
         x = x[:, -1:]
     x = L.layernorm(params["final_norm"], x)
-    logits = L.unembed(params["embed"], x, cfg.vocab)
+    logits = x if return_hidden else L.unembed(params["embed"], x, cfg.vocab)
     if decode_mode:
         return logits, caches
     return logits, {k: torch.stack(v) for k, v in ys.items()}
+
+
+def loss_fn(cfg, params, batch):
+    """Next-token loss on ``batch["tokens"]`` (B, S + 1), through the
+    plain chunked WKV."""
+    tokens = batch["tokens"]
+    hidden, _ = forward(cfg, params, tokens[:, :-1], return_hidden=True,
+                        plain=True)
+    loss = L.chunked_unembed_xent(params["embed"], hidden, tokens[:, 1:],
+                                  cfg.vocab)
+    return loss, {"xent": loss}
 
 
 def init_cache(cfg, batch, max_len=None, device="cpu"):

@@ -42,10 +42,10 @@ def test_no_jax_or_reference_imports(path):
     "dist/fault.py", "optim/sharded.py", "dist/health.py",
     "dist/recovery.py", "ckpt/checkpoint.py", "dist/chaos.py",
     "launch/elastic.py", "telemetry/trace.py", "telemetry/timing.py",
-    "core/device.py"])
+    "core/device.py", "models/encdec.py", "models/vlm.py", "models/api.py"])
 def test_the_engine_modules_are_checked(module):
-    """The EDST engines, their compilers and telemetry are among the
-    files checked above."""
+    """The EDST engines, their compilers, telemetry and the model API with
+    its encdec and vlm families are among the files checked above."""
     assert ROOT / "src" / "repro_torch" / module in FILES
 
 

@@ -15,7 +15,6 @@ differs); the lm's bf16 KV cache to one bf16 rounding (the f32 keys
 before the cast differ in their last bits, which may round either way);
 greedy tokens identical.
 """
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -195,12 +194,16 @@ def test_serve_entry_point_on_cpu(arch):
     assert res.prefill_seconds > 0 and res.decode_tokens_per_s > 0
 
 
-def test_serve_refuses_unported_families():
-    for family in ("encdec", "vlm"):
-        cfg = dataclasses.replace(tconfigs.get("smollm-135m").reduced(),
-                                  family=family)
-        with pytest.raises(NotImplementedError, match=family):
-            serve.model_fns(cfg)
+def test_serve_refuses_encoder_decoder_and_vlm():
+    """As the reference's serve: decoder-only archs, a SystemExit."""
+    for arch, family in (("seamless-m4t-large-v2", "encdec"),
+                         ("internvl2-2b", "vlm")):
+        assert tconfigs.get(arch).family == family
+        with pytest.raises(SystemExit, match=f"decoder-only archs, not "
+                                             f"{family}"):
+            serve.main(["--arch", arch, "--reduced", "--batch", "1",
+                        "--prompt-len", "8", "--gen", "2", "--device",
+                        "cpu"])
 
 
 def test_convert_round_trip_on_the_rglru_tree(rg):
