@@ -17,7 +17,11 @@ int8); trains the full-width smollm-135m data-parallel over the 16
 vertices of the 4x4 torus (edst with each engine, edst + int8 wire,
 psum_dp, and one profiled edst step whose trace it splits into the
 sync's waves) and of the ring 16 (edst + int8 wire, the fabric whose
-reduce hops run q8_combine); and serves eight full-width models through
+reduce hops run q8_combine); trains the full-width rwkv6-7b and
+olmoe-1b-7b (1 layer each, 2x2 torus) and recurrentgemma-2b (3 layers, 2
+vertices) through the same entry point and models/api.py, psum_dp, edst
+(held to psum_dp), gspmd and, for rwkv6-7b, edst + int8 wire, and
+profiles one edst step of each; and serves eight full-width models through
 the serving entry point, bf16: recurrentgemma-2b (batch 8, prompt 4096),
 smollm-135m (batch 8, prompt 1024) and rwkv6-7b (batch 8, prompt 4096),
 32 greedy tokens each, and qwen2-7b (qkv bias), qwen3-8b (qk-norm),
@@ -1530,6 +1534,159 @@ def phase_train(dev):
     return per_run
 
 
+# The token families trained through launch/train.py at full width, depth
+# cut so that the stacked fabric's (n, P) gradient rows, their waves and
+# AdamW fit the card: (arch, layers, --mesh).  recurrentgemma-2b keeps one
+# whole (rec, rec, attn) pattern on the 2-vertex fabric (even 1 layer on the
+# 2x2 torus would need about 73 GB); the others take the 2x2 torus (k = 1).
+FAMILY_TRAIN = (("rwkv6-7b", 1, "2,2,1"), ("olmoe-1b-7b", 1, "2,2,1"),
+                ("recurrentgemma-2b", 3, "2,1"))
+# gspmd's one whole-batch pass rounds its bf16 activations and bf16 weight
+# gradients at other shapes than psum_dp's per-vertex passes: its grad norm
+# is held to one bf16 unit roundoff, and its move (Adam's first step, about
+# lr * sign(g), where a sign of a gradient within rounding of zero may flip)
+# to 0.1, far below the sqrt(2) of an unrelated step
+GSPMD_GN_REL, GSPMD_MOVE_REL = 2.0 ** -8, 0.1
+
+
+def phase_train_families(dev):
+    """rwkv6-7b, olmoe-1b-7b and recurrentgemma-2b (``FAMILY_TRAIN``) at
+    full width through the training entry point (``train.main(argv,
+    cfg=...)``), f32 params, bf16 activations, remat on, batch 8 x 256:
+    ``--sync psum_dp`` for one step; ``--sync edst`` (pipelined) for two,
+    the first held to psum_dp's (move within 1e-5 of its size, grad norm
+    within 1e-6); ``--sync gspmd`` for two, the first held to psum_dp's
+    within ``GSPMD_MOVE_REL`` and ``GSPMD_GN_REL``; for rwkv6-7b also
+    ``--sync edst --quantize-grads`` for two; one more edst run of two
+    steps under the profiler, whose second step ``trace_split`` splits.
+    Losses finite, the MoE's
+    aux metrics finite, ``tree_combine`` launched in every f32 edst run
+    and the int8 codec (pack, combine, unpack) in the int8 one, no kernel
+    in gspmd's; peak under 60 GB.
+    Every launch counter is set to 0 just before each run and read just
+    after it; returns ``{run: {kernel: launches}}``."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.dist.steps import edst_spec_for_mesh
+    from repro_torch.launch import train
+    per_run = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    peaks = {}
+    for arch, layers, mesh in FAMILY_TRAIN:
+        cfg = dataclasses.replace(configs.get(arch), n_layers=layers)
+        assert cfg.remat and cfg.act_dtype == torch.bfloat16, arch
+        base = ["--arch", arch, "--batch", "8", "--seq", "256", "--mesh",
+                mesh, "--log-every", "1", "--device", "cuda"]
+        torch.cuda.reset_peak_memory_stats()
+
+        def run(tag, extra, cfg=cfg, base=base, keep=True):
+            reset_all()
+            t0 = time.perf_counter()
+            res = train.main(base + extra, keep_first_step=keep, cfg=cfg)
+            torch.cuda.synchronize()
+            per_run[tag] = c = counts()
+            aux = {k: float(v) for k, v in res.metrics.items()
+                   if k.startswith("moe_")}
+            assert all(math.isfinite(v) for v in res.losses), (tag,
+                                                               res.losses)
+            assert all(math.isfinite(v) for v in aux.values()), (tag, aux)
+            if cfg.is_moe:
+                assert set(aux) == {"moe_load_balance", "moe_router_z"}, aux
+            log(f"train {tag}: losses {res.losses}, grad norms "
+                f"{res.grad_norms}, s/step {res.step_seconds}, "
+                f"{time.perf_counter() - t0!r}s in all, aux {aux}, "
+                f"launches {c}")
+            return res
+
+        def first_step(res):
+            """(init, move) of a run's first step, flat, on the host."""
+            p0 = flat_of(res.init_params)
+            d = flat_of(res.first_step_params) - p0
+            return p0.cpu(), d.cpu()
+
+        psum = run(f"{arch} psum_dp", ["--sync", "psum_dp", "--steps", "1"])
+        p0, d_psum = first_step(psum)
+        gn_psum = psum.grad_norms[0]
+        del psum
+        runs = [("edst", ["--sync", "edst", "--steps", "2"], 1e-5, 1e-6),
+                ("gspmd", ["--sync", "gspmd", "--steps", "2"],
+                 GSPMD_MOVE_REL, GSPMD_GN_REL)]
+        if arch == "rwkv6-7b":
+            runs.append(("edst+q8", ["--sync", "edst", "--quantize-grads",
+                                     "--steps", "2"], None, None))
+        for sync, extra, lim_move, lim_gn in runs:
+            tag = f"{arch} {sync}"
+            res = run(tag, extra)
+            c = per_run[tag]
+            if sync == "gspmd":
+                assert sum(c.values()) == 0, (tag, c)
+            elif sync == "edst":
+                assert c["tree_combine"] > 0, (tag, c)
+            else:
+                # k = 1: every int8 reduce hop lands through q8_combine
+                assert min(c[k] for k in ("q8_pack_rows", "q8_combine_rows",
+                                          "q8_unpack_rows")) > 0, (tag, c)
+                del res
+                continue
+            q0, d = first_step(res)
+            gn = res.grad_norms[0]
+            if sync == "edst":
+                warm = res.step_seconds[1]
+            del res
+            assert torch.equal(q0, p0), f"{tag}: a different init"
+            del q0
+            d, ref = d.to(dev), d_psum.to(dev)
+            rel = float((d - ref).norm() / ref.norm())
+            gap = float((d - ref).abs().max())
+            del d, ref
+            gn_rel = abs(gn - gn_psum) / gn_psum
+            log(f"{tag} vs psum_dp, step 1: |d - d_psum| / |d_psum| "
+                f"{rel!r} (<= {lim_move}), max {gap!r}; grad norm {gn!r} "
+                f"vs {gn_psum!r}, relative {gn_rel!r} (<= {lim_gn})")
+            assert rel <= lim_move, (tag, rel)
+            assert gn_rel <= lim_gn, (tag, gn_rel)
+        del p0, d_psum
+        # the split of one profiled edst step (the second of two)
+        prof_dir = ROOT / "build" / "profile_families"
+        shutil.rmtree(prof_dir, ignore_errors=True)
+        res = run(f"{arch} edst profiled", ["--sync", "edst", "--steps", "2",
+                                            "--profile-dir", str(prof_dir)],
+                  keep=False)
+        dims, names = train.parse_mesh(mesh)
+        split = trace_split(res.profile_trace,
+                            len(edst_spec_for_mesh(dims, names).waves))
+        del res
+        shutil.rmtree(prof_dir, ignore_errors=True)
+        busy, in_waves = (split[k] / 1e3 for k in ("device_busy_ms",
+                                                   "device_busy_in_waves_ms"))
+        log(f"profiled edst step ({arch}, step 2 of 2): {split}; device "
+            f"busy {busy / warm:.1%} of the unprofiled warm step ({warm!r} "
+            f"s), in the waves {in_waves / warm:.1%}")
+        assert split["device_events"] > 0 and in_waves > 0, (arch, split)
+        peaks[arch] = torch.cuda.max_memory_allocated()
+        log(f"train {arch} ({layers} of {configs.get(arch).n_layers} "
+            f"layers, --mesh {mesh}) peak memory: {peaks[arch] / 1e9:.2f} GB")
+    peak = max(peaks.values())
+    log(f"train families peak memory: {peak / 1e9:.2f} GB")
+    assert peak < 60e9, peaks
+    return per_run
+
+
+def fault_loop_cfg():
+    """smollm-135m as ``phase_zero1``, ``phase_elastic`` and
+    ``phase_telemetry`` train it: remat off.  Remat recomputes the same
+    forward in the backward and changes no value, but on this host-bound
+    per-vertex loop it adds about half to a step (the striped engine's
+    warm step, one run on an H100: 5.49 s in ``phase_train`` with it,
+    3.58-3.91 s in ``phase_zero1`` without), and those phases run about
+    40 steps; ``phase_train`` trains with it on."""
+    import dataclasses
+    from repro_torch import configs
+    return dataclasses.replace(configs.get("smollm-135m"), remat=False)
+
+
 def _dense_state(step, mu, nu, emap, params):
     """The dense ``OptState`` holding the sharded moments ``mu`` / ``nu``
     laid out on the element map ``emap`` (numpy, -1 = padding)."""
@@ -1556,10 +1713,10 @@ def _held_to_psum(tag, params, dense_state, batch, new_params, grad_norm,
     size, the grad norm within 1e-5 (both are sums over the vertices in
     another order).  Returns (move, grad norm) relative differences."""
     import torch
-    from repro_torch import configs
     from repro_torch.dist.steps import make_train_step
-    cfg = configs.get("smollm-135m")
-    step = make_train_step(cfg, opt, mesh, MESH_NAMES, mode="psum_dp")
+    from repro_torch.models.api import build
+    step = make_train_step(build(fault_loop_cfg()), opt, mesh, MESH_NAMES,
+                           mode="psum_dp")
     ref, _, met = step(params, dense_state, batch)
     p0 = flat_of(params)
     d_ref, d_got = flat_of(ref) - p0, flat_of(new_params) - p0
@@ -1603,7 +1760,6 @@ def phase_zero1(dev):
        before and after it), the reduce-scatter / allgather split, the
        time of a reshard, a checkpoint save and restore, peak memory."""
     import torch
-    from repro_torch import configs
     from repro_torch.ckpt import restore_sharded, save_sharded_checkpoint
     from repro_torch.core.collectives import (owner_element_map,
                                               striped_tables)
@@ -1614,11 +1770,12 @@ def phase_zero1(dev):
                                         fault_runtime_for_mesh,
                                         make_train_step)
     from repro_torch.launch import train
-    from repro_torch.models.transformer import init_lm
+    from repro_torch.models.api import build
     from repro_torch.optim import AdamW, ShardedAdamW, cosine_schedule
     base = ["--arch", "smollm-135m", "--batch", "32", "--seq", "256",
             "--log-every", "1", "--device", "cuda", "--mesh", "4,4,1"]
-    cfg = configs.get("smollm-135m")
+    cfg = fault_loop_cfg()
+    api = build(cfg)
     stream = SyntheticLMStream(cfg.vocab, 256, 32, seed=0)
 
     def batch(step):
@@ -1632,7 +1789,7 @@ def phase_zero1(dev):
     def run(tag, extra, keep=False):
         reset_all()
         t0 = time.perf_counter()
-        res = train.main(base + extra, keep_first_step=keep)
+        res = train.main(base + extra, keep_first_step=keep, cfg=cfg)
         torch.cuda.synchronize()
         per_run[tag] = counts()
         assert all(math.isfinite(v) for v in res.losses), (tag, res.losses)
@@ -1646,7 +1803,7 @@ def phase_zero1(dev):
         """One more zero1 step from ``res``'s final state, built with
         telemetry (the default step compares nothing): every vertex row of
         its allgathered params must equal every other, bit for bit."""
-        step = make_train_step(cfg, AdamW(cosine_schedule(3e-4, 20, 100)),
+        step = make_train_step(api, AdamW(cosine_schedule(3e-4, 20, 100)),
                                TORUS_MESH, MESH_NAMES, zero1=True,
                                engine="striped", quantize=quantize,
                                telemetry=True)
@@ -1686,9 +1843,9 @@ def phase_zero1(dev):
     # 3. a link kill through the fault runtime, driven from Python
     rt = fault_runtime_for_mesh(TORUS_MESH, MESH_NAMES, engine="striped")
     opt = AdamW(cosine_schedule(3e-4, 20, 100))
-    zstep = make_train_step(cfg, opt, TORUS_MESH, MESH_NAMES, zero1=True,
+    zstep = make_train_step(api, opt, TORUS_MESH, MESH_NAMES, zero1=True,
                             fault_runtime=rt, telemetry=True)
-    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    params = api.init(torch.Generator(device=dev).manual_seed(0), dev)
     state = ShardedAdamW(opt).init_for(params, rt, N_VERT)
     dead = sorted(rt.entries[0].sched.trees[0].tree)[0]
     sid_d = rt.on_failure(FailureEvent(links=frozenset({dead})),
@@ -1861,7 +2018,7 @@ def phase_zero1(dev):
     assert dec.action == "flip" and ctrl.schedule_id != 0
     for row in ctrl.journal_rows():
         log(f"recover journal: {json.dumps(row)}")
-    step_fn = make_train_step(cfg, opt2, TORUS_MESH, MESH_NAMES,
+    step_fn = make_train_step(api, opt2, TORUS_MESH, MESH_NAMES,
                               mode="edst", fault_runtime=ctrl.runtime,
                               telemetry=True)
     tag = "edst torus4x4 recover flipped"
@@ -1944,7 +2101,6 @@ def phase_elastic(dev):
        static verifier.
     Peak memory under 60 GB."""
     import torch
-    from repro_torch import configs
     from repro_torch.analysis.verify import verify_spec
     from repro_torch.core.fault import FailureEvent
     from repro_torch.data import SyntheticLMStream
@@ -1953,7 +2109,7 @@ def phase_elastic(dev):
     from repro_torch.launch import elastic, train
     from repro_torch.optim import AdamW, cosine_schedule
     t_phase = time.perf_counter()
-    cfg = configs.get("smollm-135m")
+    cfg = fault_loop_cfg()
     per_run = {}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2051,7 +2207,7 @@ def phase_elastic(dev):
             reset_all()
             t0 = time.perf_counter()
             r = train.main(base + extra + ["--ckpt-dir", str(d)],
-                           keep_first_step=True)
+                           keep_first_step=True, cfg=cfg)
             torch.cuda.synchronize()
             per_run[tag] = c = counts()
             log(f"{tag}: resumed at {r.start_step}, losses {r.losses}, "
@@ -2343,7 +2499,7 @@ def phase_telemetry(dev):
         res = train.main(["--arch", "smollm-135m", "--batch", "32", "--seq",
                           "256", "--device", "cuda", "--mesh", "4,4,1",
                           "--sync", "edst", "--steps", "1",
-                          "--trace-out", str(path)])
+                          "--trace-out", str(path)], cfg=fault_loop_cfg())
     printed = [ln for ln in out.getvalue().splitlines()
                if "trace" in ln or "spans" in ln]
     with open(path) as f:
@@ -2430,14 +2586,16 @@ def main():
     # the main paths, each run counted on its own
     per_run = phase_allreduce(dev)
     per_run.update(phase_train(dev))
+    per_run.update(phase_train_families(dev))
     per_run.update(phase_serve(dev))
     per_run.update(phase_zero1(dev))
     per_run.update(phase_elastic(dev))
     per_run.update(phase_telemetry(dev))
     launches = {name: sum(c[name] for c in per_run.values())
                 for name in counts()}
-    log(f"launches over the allreduce, training, serving, zero1, elastic "
-        f"and telemetry runs: {launches}")
+    log(f"launches over the allreduce, training (smollm-135m and the other "
+        f"token families), serving, zero1, elastic and telemetry runs: "
+        f"{launches}")
     for name, n in launches.items():
         assert n > 0, f"{name} never launched on its path"
     for r in rows:

@@ -1,10 +1,14 @@
 """Data-parallel train steps with selectable gradient synchronization (the
-reference's ``repro/dist/steps.py``, manual sync modes).
+reference's ``repro/dist/steps.py``).
 
-``make_train_step`` builds ``step(params, opt_state, batch) -> (params,
-opt_state, metrics)`` for a mesh, with ``mode`` choosing how the
-data-parallel gradients are combined:
+``make_train_step(api, ...)`` builds ``step(params, opt_state, batch) ->
+(params, opt_state, metrics)`` for a mesh and a model (a
+:class:`repro_torch.models.api.ModelAPI`: its ``loss_fn`` is the loss),
+with ``mode`` choosing how the data-parallel gradients are combined:
 
+  * ``"gspmd"``   -- the loss of the whole global batch and its gradient,
+    with no manual sync (the reference leaves the sum to XLA's
+    partitioner; one device holds the whole batch here);
   * ``"psum_dp"`` -- a plain sum over the replicas (the reference's
     ``jax.lax.psum``);
   * ``"edst"``    -- the k-tree allreduce over the paper's
@@ -12,15 +16,18 @@ data-parallel gradients are combined:
     (:func:`edst_spec_for_mesh`), through ``tree_allreduce`` in the
     compiled form ``engine`` names (:data:`ENGINES`).
 
-The DP axes (``pod``, ``data``) form a :class:`StackedFabric` of n
-vertices on one device.  Parameters are replicated, so one copy is held;
-vertex v's loss and gradient on its batch shard are computed in turn into
-row v of an ``(n, P)`` flat-gradient buffer, which is then summed across
-vertices, divided by n and handed to AdamW.  The flat layout is the
-reference's ``ravel_pytree`` order (sorted keys at every level, each leaf
-in C order), so the EDST chunk rows and their int8 scales cover the same
-elements as there.  A ``model`` axis is accepted and not replicated: the
-reference's manual sync modes leave it unused.
+For the manual modes the DP axes (``pod``, ``data``) form a
+:class:`StackedFabric` of n vertices on one device.  Parameters are
+replicated, so one copy is held; vertex v's loss and gradient on its
+batch shard are computed in turn into row v of an ``(n, P)``
+flat-gradient buffer, which is then summed across vertices, divided by n
+and handed to AdamW.  The flat layout is the reference's ``ravel_pytree``
+order (sorted keys at every level, each leaf in C order), so the EDST
+chunk rows and their int8 scales cover the same elements as there.  A
+``model`` axis is accepted and not replicated: the reference's manual
+sync modes leave it unused.  ``grad_accum`` splits each vertex's shard
+(the whole batch under ``gspmd``) into that many microbatches, whose mean
+gradient is the shard's.
 
 ``zero1=True`` replaces the allreduce and the dense optimizer with the
 ZeRO-1 pipeline: reduce-scatter the gradients onto owner stripes, run the
@@ -44,7 +51,6 @@ from ..core.collectives import (FusedAllreduceSpec, PipelinedAllreduceSpec,
                                 pipelined_spec_from_schedule,
                                 striped_spec_from_schedule, wave_wire_bytes)
 from ..core.edst_star import star_edsts
-from ..models.transformer import loss_fn
 from ..optim.adamw import tree_leaves
 from ..optim.sharded import ShardedAdamW, ShardedOptState, decay_mask
 from .fabric import StackedFabric
@@ -55,7 +61,7 @@ from .striped import (owner_stripes, rs_conservation_gap, tree_allgather,
 from .tree_allreduce import tree_allreduce
 
 DATA_AXES = ("pod", "data")
-SYNC_MODES = ("psum_dp", "edst")
+SYNC_MODES = ("gspmd", "psum_dp", "edst")
 ENGINES = ("pipelined", "fused", "striped")
 
 
@@ -177,14 +183,16 @@ def _entry_wire_table(entries, nbytes: int, itemsize: int) -> list:
     return hit
 
 
-def _split_batch(batch, n: int) -> list:
-    """The batch split evenly over the n DP vertices in row-major order,
-    as ``shard_map`` splits it: every entry along its leading dim."""
+def _split_batch(batch, n: int, what: str = "data-parallel vertices"
+                 ) -> list:
+    """The batch split evenly into n contiguous parts in row-major order,
+    as ``shard_map`` splits it over the vertices and the reference's
+    ``grad_accum`` reshape splits a shard into microbatches: every entry
+    along its leading dim."""
     rows = {k: v.shape[0] for k, v in batch.items()}
     b = next(iter(rows.values()))
     if any(r != b for r in rows.values()) or b % n:
-        raise ValueError(f"batch {rows} does not split over {n} "
-                         f"data-parallel vertices")
+        raise ValueError(f"batch {rows} does not split over {n} {what}")
     bl = b // n
     return [{k: v[i * bl:(i + 1) * bl] for k, v in batch.items()}
             for i in range(n)]
@@ -194,12 +202,20 @@ def _flat(tree) -> torch.Tensor:
     return torch.cat([p.detach().reshape(-1) for p in tree_leaves(tree)])
 
 
-def make_train_step(cfg, opt, mesh_shape, axis_names, mode: str = "edst",
+def _mean_aux(auxs: list) -> dict:
+    """The mean of each metric over a list of metric dicts."""
+    return {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
+
+
+def make_train_step(api, opt, mesh_shape, axis_names, mode: str = "edst",
                     quantize: bool = False, engine: str = "pipelined",
                     segments="auto", zero1: bool = False,
                     fault_runtime: FaultAwareAllreduce | None = None,
-                    telemetry: bool = False, codec=None, loss=None):
-    """Build the train step for a mesh (see the module docstring).
+                    telemetry: bool = False, codec=None, grad_accum: int = 1,
+                    loss=None):
+    """Build the train step of ``api`` (a
+    :class:`repro_torch.models.api.ModelAPI`) for a mesh (see the module
+    docstring).
 
     ``quantize`` sends int8 chunks over the trees where the device's codec
     policy allows it (off on the CPU, ``"full"`` on CUDA; see
@@ -210,12 +226,17 @@ def make_train_step(cfg, opt, mesh_shape, axis_names, mode: str = "edst",
     ``segments`` streams the pipelined engine's chunks in that many
     segments (``"auto"``: see
     :func:`~repro_torch.dist.tree_allreduce.auto_segments`).  Every entry
-    of the batch (``{"tokens": (B, S + 1)}`` for the model) is split
-    evenly over the n DP vertices in row-major order, as ``shard_map``
-    splits it.  ``loss`` replaces the model's loss: a callable
-    ``(params, batch) -> (loss, aux)`` (default: ``loss_fn`` of ``cfg``).
-    Returns metrics ``loss`` (mean over vertices), ``xent``,
-    ``grad_norm`` and ``lr``.
+    of the batch (``{"tokens": (B, S + 1)}`` for the token families) is
+    split evenly over the n DP vertices in row-major order, as
+    ``shard_map`` splits it (``gspmd`` keeps it whole), and each part
+    into ``grad_accum`` microbatches: the loss, the gradient and each
+    metric of the loss are their means over the microbatches, as in the
+    reference's ``local_loss_and_grads``.  ``loss`` replaces
+    ``api.loss_fn``: a callable ``(params, batch) -> (loss, metrics)``
+    (``api`` may then be ``None``).  Returns metrics ``loss`` (mean over
+    vertices), ``grad_norm``, ``lr`` and the loss's own metrics
+    (``xent``, the MoE's ``moe_load_balance`` and ``moe_router_z``),
+    each averaged over the vertices.
 
     ``zero1=True`` (``mode="edst"``, striped engine) is the ZeRO-1 step:
     the gradients are ``tree_reduce_scatter``'d onto owner stripes,
@@ -238,9 +259,10 @@ def make_train_step(cfg, opt, mesh_shape, axis_names, mode: str = "edst",
     gradients -- 0 when every replica holds the same sums; for zero1 the
     scattered domain's ``rs_conservation_gap``), ``sync_grad_norm``,
     ``sync_schedule_id`` and ``sync_wire_bytes`` (the EDST program's wire
-    bytes, per entry with a fault runtime; 0 for ``psum_dp``); for zero1
-    also ``ag_replicas_equal``: whether every vertex row of the
-    allgathered params equals every other, bit for bit."""
+    bytes, per entry with a fault runtime; 0 for ``psum_dp`` and
+    ``gspmd``, whose ``sync_dev`` is 0 too: nothing is synchronized by
+    hand); for zero1 also ``ag_replicas_equal``: whether every vertex
+    row of the allgathered params equals every other, bit for bit."""
     if mode not in SYNC_MODES:
         raise ValueError(f"mode {mode!r} not in {SYNC_MODES}")
     if fault_runtime is not None and mode != "edst":
@@ -259,7 +281,11 @@ def make_train_step(cfg, opt, mesh_shape, axis_names, mode: str = "edst",
         raise ValueError(
             f"fault_runtime fabric n={fault_runtime.graph.n} != DP extent "
             f"{n}; rebuild it with fault_runtime_for_mesh")
-    loss_of = loss if loss is not None else functools.partial(loss_fn, cfg)
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum={grad_accum} must be >= 1")
+    loss_of = loss if loss is not None else api.loss_fn
+    # gradient rows: one a vertex, or the whole batch's one under gspmd
+    rows_n = 1 if mode == "gspmd" else n
     spec = fault_sync = z_rs = z_sl = z_ag = None
     if mode == "edst" and n > 1:
         if fault_runtime is not None:
@@ -301,28 +327,42 @@ def make_train_step(cfg, opt, mesh_shape, axis_names, mode: str = "edst",
         return 0.0
 
     def local_grads(params, batch):
-        """``(n, P)`` per-vertex gradients (row v: vertex v's loss on its
-        batch shard) and the per-vertex losses."""
-        parts = _split_batch(batch, n)
+        """``(rows, P)`` gradients (row v: the mean gradient of vertex v's
+        microbatches; under gspmd one row, the whole batch's), the loss
+        and the loss's metrics, each the mean over the vertices of its
+        mean over the microbatches."""
         leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
         size = sum(p.numel() for p in leaves)
-        grads = torch.empty((n, size), dtype=leaves[0].dtype,
+        grads = torch.empty((rows_n, size), dtype=leaves[0].dtype,
                             device=leaves[0].device)
-        losses = []
-        for v in range(n):
-            lv, _ = loss_of(params, parts[v])
-            off = 0
-            for g in torch.autograd.grad(lv, leaves):
-                grads[v, off:off + g.numel()] = g.reshape(-1)
-                off += g.numel()
-            losses.append(lv.detach())
-        return grads, torch.stack(losses).mean()
+        losses, auxs = [], []
+        for v, part in enumerate(_split_batch(batch, rows_n)):
+            row = grads[v]
+            mlosses, maux = [], []
+            for i, mb in enumerate(_split_batch(part, grad_accum,
+                                                "microbatches")):
+                lv, aux = loss_of(params, mb)
+                off = 0
+                for g in torch.autograd.grad(lv, leaves):
+                    dst = row[off:off + g.numel()]
+                    if i:
+                        dst.add_(g.reshape(-1))
+                    else:
+                        dst.copy_(g.reshape(-1))
+                    off += g.numel()
+                mlosses.append(lv.detach())
+                maux.append({k: a.detach() for k, a in aux.items()})
+            if grad_accum > 1:
+                row.div_(grad_accum)
+            losses.append(sum(mlosses) / grad_accum)
+            auxs.append(_mean_aux(maux))
+        return grads, torch.stack(losses).mean(), _mean_aux(auxs)
 
     def sync(g, sid):
         """(n, P) per-vertex gradients -> (P,) mean gradient, and the
         telemetry of the sync."""
         tel = {}
-        if n == 1:
+        if g.shape[0] == 1:
             out = g[0]
         elif mode == "psum_dp":
             out = g.sum(0) / n
@@ -346,23 +386,24 @@ def make_train_step(cfg, opt, mesh_shape, axis_names, mode: str = "edst",
         if telemetry:
             tel.setdefault("sync_dev", 0.0)
             tel.setdefault("sync_wire_bytes", 0.0)
-            tel["sync_grad_norm"] = float(out.float().norm())
+            # a sum of squares, as the reference's tree norm (the CPU's f32
+            # norm() of a long vector reads up to 5e-5 low)
+            tel["sync_grad_norm"] = float(torch.sqrt((out.float() ** 2).sum()))
             tel["sync_schedule_id"] = sid
         return out, tel
 
     def dense_step(params, opt_state, batch, sid):
-        grads, loss = local_grads(params, batch)
+        grads, loss, aux = local_grads(params, batch)
         flat, tel = sync(grads, sid)
         del grads
         new_params, new_state, om = opt.apply(
             _detach(params), _unflatten(flat, params), opt_state)
-        return new_params, new_state, {"loss": loss, "xent": loss, **om,
-                                       **tel}
+        return new_params, new_state, {"loss": loss, **om, **aux, **tel}
 
     sopt = ShardedAdamW(opt)
 
     def zero1_step(params, opt_state, batch, sid):
-        grads, loss = local_grads(params, batch)
+        grads, loss, aux = local_grads(params, batch)
         fabric = fabric_on(grads.device)
         owned_g = z_rs(grads, sid, fabric) / n
         tel = {}
@@ -396,8 +437,7 @@ def make_train_step(cfg, opt, mesh_shape, axis_names, mode: str = "edst",
         del rows
         new_params = _unflatten(new_flat, params)
         return new_params, ShardedOptState(step, mu, nu), {
-            "loss": loss, "xent": loss, "grad_norm": gnorm, "lr": lr,
-            **tel}
+            "loss": loss, "grad_norm": gnorm, "lr": lr, **tel, **aux}
 
     body = zero1_step if zero1 else dense_step
 

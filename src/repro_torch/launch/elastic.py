@@ -56,18 +56,17 @@ from repro_torch.dist.recovery import RecoveryController, RecoveryPolicy
 from repro_torch.dist.steps import (dp_extent, edst_spec_for_mesh,
                                     fault_runtime_for_mesh, make_train_step)
 from repro_torch.launch.train import parse_mesh
-from repro_torch.models.transformer import init_lm
+from repro_torch.models.api import build
 from repro_torch.optim import AdamW, cosine_schedule
 from repro_torch.optim.adamw import tree_leaves
 
 
-def reshard_checkpoint(cfg, opt, ckpt_dir: str, device):
+def reshard_checkpoint(api, opt, ckpt_dir: str, device):
     """Load the newest dense checkpoint in ``ckpt_dir`` onto ``device``.
-    The template is ``init_lm`` of ``cfg`` (generator seed 0; every leaf
-    is overwritten) and ``opt.init`` of it.  Returns ``(params,
-    opt_state, step)``."""
-    params = init_lm(cfg, torch.Generator(device=device).manual_seed(0),
-                     device)
+    The template is ``api.init`` (a :class:`repro_torch.models.api.
+    ModelAPI`'s; generator seed 0, every leaf is overwritten) and
+    ``opt.init`` of it.  Returns ``(params, opt_state, step)``."""
+    params = api.init(torch.Generator(device=device).manual_seed(0), device)
     state, step, _ = restore(ckpt_dir, {"p": params, "o": opt.init(params)})
     if state is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
@@ -295,8 +294,9 @@ def chaos_loop(device, cfg, batch_size: int, seq: int, ckpt_dir: str,
     opt = AdamW(cosine_schedule(3e-4, 20, 100))
     stream = SyntheticLMStream(cfg.vocab, seq, batch_size, seed=CHAOS_SEED)
     runtime = fault_runtime_for_mesh(mesh0, names)
-    params = init_lm(cfg, torch.Generator(device=device).manual_seed(
-        CHAOS_SEED), device)
+    api = build(cfg)
+    params = api.init(torch.Generator(device=device).manual_seed(CHAOS_SEED),
+                      device)
     # the loop's state; "n" is the vertex count, so the rescale hook needs
     # no reference to the controller that holds it (a cycle would keep
     # this state alive until the cycle collector ran)
@@ -305,7 +305,7 @@ def chaos_loop(device, cfg, batch_size: int, seq: int, ckpt_dir: str,
     del params
 
     def rebuild_exec(rt, straggler=None):
-        st["step"] = make_train_step(cfg, opt, st["mesh"], names,
+        st["step"] = make_train_step(api, opt, st["mesh"], names,
                                      mode="edst", fault_runtime=rt,
                                      telemetry=True)
         st["monitor"] = HealthMonitor(device, rt, straggler=straggler)
@@ -328,7 +328,7 @@ def chaos_loop(device, cfg, batch_size: int, seq: int, ckpt_dir: str,
         mesh = survivor_mesh(st["n"] - len(event.nodes))
         new_rt = fault_runtime_for_mesh(mesh, names)
         st["n"] = new_rt.graph.n
-        params, opt_state, step = reshard_checkpoint(cfg, opt, ckpt_dir,
+        params, opt_state, step = reshard_checkpoint(api, opt, ckpt_dir,
                                                      device)
         st["restore_equal"] = step == saved["step"] and same_state(
             params, opt_state, st["params"], st["opt_state"])
@@ -477,8 +477,8 @@ def main(argv=None):
         cfg = cfg.reduced()
     dims, names = parse_mesh(args.to_mesh)
     opt = AdamW(cosine_schedule(3e-4, 10, 100))
-    params, opt_state, step = reshard_checkpoint(cfg, opt, args.ckpt_dir,
-                                                 device)
+    params, opt_state, step = reshard_checkpoint(build(cfg), opt,
+                                                 args.ckpt_dir, device)
     spec = rebuild_schedule(dims, names)
     k = spec.k if spec is not None else 0
     print(f"[elastic] resumed step {step} onto mesh {dims}; "

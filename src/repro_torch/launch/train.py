@@ -1,7 +1,14 @@
-"""End-to-end training entry point of the port: config -> model ->
-data-parallel train step (``edst`` or ``psum_dp`` gradient sync over a
-stacked fabric, or ZeRO-1) -> deterministic data stream -> checkpoint /
-restart -> fault loop.
+"""End-to-end training entry point of the port: config -> model (through
+``models.api.build``: every token family, ``lm``, ``moe``, ``rglru`` and
+``rwkv6``) -> data-parallel train step (``edst`` or ``psum_dp`` gradient
+sync over a stacked fabric, ``gspmd``'s one whole-batch gradient, or
+ZeRO-1) -> deterministic data stream -> checkpoint / restart -> fault
+loop.
+
+The data stream yields tokens only, so the ``encdec`` and ``vlm``
+families (which also need frames or patches) are refused before anything
+is built; the reference's trainer fails on them at its first step.
+``--sync`` defaults to ``edst`` (the reference's to ``gspmd``).
 
 Runs on the CUDA device unless ``--device cpu`` is given; with no CUDA
 device and no ``--device cpu`` it raises rather than carry on on the CPU.
@@ -43,7 +50,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.data import SyntheticLMStream
 from repro_torch.dist.steps import (ENGINES, dp_extent, edst_spec_for_mesh,
                                     fault_runtime_for_mesh, make_train_step)
-from repro_torch.models.transformer import init_lm
+from repro_torch.models.api import build
 from repro_torch.optim import AdamW, ShardedAdamW, cosine_schedule
 from repro_torch.optim.adamw import tree_leaves
 from repro_torch.telemetry import metrics as tmetrics
@@ -84,7 +91,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--mesh", default="1,1")
-    ap.add_argument("--sync", default="edst", choices=["edst", "psum_dp"])
+    ap.add_argument("--sync", default="edst",
+                    choices=["edst", "psum_dp", "gspmd"])
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--ckpt-dir", default=None)
@@ -177,16 +185,28 @@ class Run:
         return params, opt_state, start
 
 
-def setup(args):
-    """``(Run, params, opt_state)`` from the parsed arguments."""
+TOKEN_FAMILIES = ("lm", "moe", "rglru", "rwkv6")
+
+
+def setup(args, cfg=None):
+    """``(Run, params, opt_state)`` from the parsed arguments; ``cfg``
+    replaces ``--arch`` (and ``--reduced``)."""
+    if cfg is None:
+        cfg = configs.get(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced()
+    if cfg.family not in TOKEN_FAMILIES:
+        raise SystemExit(
+            f"train feeds a token stream: {cfg.name} is of the "
+            f"{cfg.family} family, whose loss also needs "
+            f"{'frames' if cfg.family == 'encdec' else 'patches'} "
+            f"(trainable families: {', '.join(TOKEN_FAMILIES)})")
     device = resolve_device(args.device)
-    cfg = configs.get(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
+    api = build(cfg)
     dims, names = parse_mesh(args.mesh)
     opt = AdamW(cosine_schedule(args.lr, args.warmup, args.steps))
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = init_lm(cfg, gen, device)
+    params = api.init(gen, device)
     n = dp_extent(dims, names)
     run = Run(args, device, None, SyntheticLMStream(
         cfg.vocab, args.seq, args.batch, seed=args.seed))
@@ -206,7 +226,7 @@ def setup(args):
                                             journal_path=args.journal_out)
 
     def remake_step(rt):
-        return make_train_step(cfg, opt, dims, names, mode=args.sync,
+        return make_train_step(api, opt, dims, names, mode=args.sync,
                                quantize=args.quantize_grads,
                                engine=args.edst_engine, zero1=args.zero1,
                                fault_runtime=rt, telemetry=rt is not None)
@@ -310,10 +330,12 @@ def _recover_tick(run: Run, step: int, t1: float, metrics):
     return "redo"
 
 
-def main(argv=None, keep_first_step: bool = False) -> TrainResult:
+def main(argv=None, keep_first_step: bool = False,
+         cfg=None) -> TrainResult:
     """Train; ``keep_first_step`` also returns copies of the parameters
-    before and after the first step this run takes.  ``step_seconds`` are
-    host-clock times from one step's loss being read to the next's."""
+    before and after the first step this run takes; ``cfg`` (from Python
+    only, e.g. a depth-cut config) replaces ``--arch``.  ``step_seconds``
+    are host-clock times from one step's loss being read to the next's."""
     ap = parser()
     args = ap.parse_args(argv)
     if args.zero1:
@@ -328,7 +350,7 @@ def main(argv=None, keep_first_step: bool = False) -> TrainResult:
                  "striped: that engine's int8 allgather re-codes every hop, "
                  "so its vertex rows differ by design and the controller "
                  "would read every step's checksum spread as corruption")
-    run, params, opt_state = setup(args)
+    run, params, opt_state = setup(args, cfg)
     if args.trace_out:
         write_sync_trace(args, run, params)
     params, opt_state, start = run.resume(params, opt_state)

@@ -83,11 +83,15 @@ def encode(cfg, params, frames, *, fresh=False):
     pos = torch.arange(frames.shape[1], device=frames.device)
     acfg = attn_cfg(cfg)
     for lp in _unbind(params["enc"]):
-        o, _ = L.attention(lp["attn"], acfg, L.layernorm(lp["ln1"], x), pos,
-                           mask_mode="full", fresh=fresh)
-        x = x + o
-        x = x + L.dense_mlp(lp["mlp"], L.layernorm(lp["ln2"], x))
+        x = L.remat(cfg, _enc_block, acfg, lp, x, pos, fresh)
     return L.layernorm(params["enc_norm"], x)
+
+
+def _enc_block(acfg, lp, x, pos, fresh):
+    o, _ = L.attention(lp["attn"], acfg, L.layernorm(lp["ln1"], x), pos,
+                       mask_mode="full", fresh=fresh)
+    x = x + o
+    return x + L.dense_mlp(lp["mlp"], L.layernorm(lp["ln2"], x))
 
 
 # ---------------------------------------------------------------------------
@@ -159,9 +163,9 @@ def decode(cfg, params, tokens, enc_out=None, *, self_cache=None,
         kv = None if self_cache is None else (self_cache[0][i],
                                               self_cache[1][i])
         enc_kv = None if ckv is None else (ckv[0][i], ckv[1][i])
-        x, _ = _dec_block(cfg, lp, x, positions, enc_kv=enc_kv,
-                          enc_out=enc_out, self_cache=kv,
-                          cache_len=cache_len, fresh=fresh)
+        x, _ = L.remat(cfg, _dec_block, cfg, lp, x, positions,
+                       enc_kv=enc_kv, enc_out=enc_out, self_cache=kv,
+                       cache_len=cache_len, fresh=fresh)
     if last_only:
         x = x[:, -1:]
     x = L.layernorm(params["dec_norm"], x)

@@ -3,6 +3,9 @@ and the layer norm of ``rwkv6`` and ``encdec``), rotary embeddings, GQA
 attention (with the optional qkv bias and qk-norm, causal or full), the
 gated and the dense GELU MLP, embeddings and the chunked cross-entropy.
 
+Every layer loop runs its body through :func:`remat`, the reference's
+``jax.checkpoint`` under ``cfg.remat``.
+
 Parameters are plain dicts of tensors that mirror the reference's tree key
 for key (``repro/models/layers.py``).  The casts follow the reference
 exactly: parameters stay f32 and are cast to the activation dtype where
@@ -18,11 +21,23 @@ import functools
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention.ops import attention as flash_attention
 
 # f32 matrix products run in full f32 on the card, as in the reference
 torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def remat(cfg, fn, *args, **kw):
+    """``fn(*args, **kw)``; while autograd records and ``cfg.remat`` is
+    set, under ``torch.utils.checkpoint`` (as the reference wraps each
+    layer body in ``jax.checkpoint``): the body's activations are not
+    kept for the backward but recomputed there.  Prefill and decode run
+    without a gradient and are untouched."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return fn(*args, **kw)
 
 
 # ---------------------------------------------------------------------------

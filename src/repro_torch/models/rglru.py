@@ -149,6 +149,16 @@ def _ring(k, positions, wnd):
     return buf
 
 
+def _att_block(acfg, ap, x, positions, fresh):
+    """A local-attention layer over fresh keys: ``(out, (k, v))``."""
+    return L.attention(ap["attn"], acfg, L.rmsnorm(ap["ln"], x), positions,
+                       fresh=fresh)
+
+
+def _mlp_block(cfg, lm, x):
+    return x + L.glu_mlp(lm["mlp"], L.rmsnorm(lm["ln"], x), cfg.mlp_kind)
+
+
 def forward(cfg, params, tokens, *, caches=None, cache_len=None,
             last_only=False, return_hidden=False, plain=False):
     """Returns ``(logits, caches)`` (the final-normed hidden states in
@@ -181,8 +191,9 @@ def forward(cfg, params, tokens, *, caches=None, cache_len=None,
         if kind == "rec":
             state = caches["state"][ri] if decode_mode else None
             buf = caches["conv"][ri] if decode_mode else None
-            o, new_state, new_buf = rec_block(cfg, rec[ri], x, state=state,
-                                              conv_buf=buf, plain=plain)
+            o, new_state, new_buf = L.remat(cfg, rec_block, cfg, rec[ri], x,
+                                            state=state, conv_buf=buf,
+                                            plain=plain)
             x = x + o
             if decode_mode:
                 caches["state"][ri] = new_state
@@ -193,22 +204,20 @@ def forward(cfg, params, tokens, *, caches=None, cache_len=None,
             ri += 1
         else:
             ap = att[ai]
-            h = L.rmsnorm(ap["ln"], x)
             if decode_mode:
                 o, _ = L.attention(
-                    ap["attn"], acfg, h, positions,
+                    ap["attn"], acfg, L.rmsnorm(ap["ln"], x), positions,
                     kv_cache=(caches["kv_k"][ai], caches["kv_v"][ai]),
                     cache_len=cache_len, cache_write_idx=write_idx,
                     cache_positions=caches["kv_pos"])
             else:
-                o, (k, v) = L.attention(ap["attn"], acfg, h, positions,
-                                        fresh=not plain)
+                o, (k, v) = L.remat(cfg, _att_block, acfg, ap, x, positions,
+                                    not plain)
                 out_caches["kv_k"].append(_ring(k, positions, wnd))
                 out_caches["kv_v"].append(_ring(v, positions, wnd))
             x = x + o
             ai += 1
-        lm = mlp[li]
-        x = x + L.glu_mlp(lm["mlp"], L.rmsnorm(lm["ln"], x), cfg.mlp_kind)
+        x = L.remat(cfg, _mlp_block, cfg, mlp[li], x)
 
     if last_only:
         x = x[:, -1:]

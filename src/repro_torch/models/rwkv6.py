@@ -174,6 +174,16 @@ def channel_mix(p, x, *, last=None):
 # model
 # ---------------------------------------------------------------------------
 
+def _layer(cfg, lp, x, state, last_tm, last_cm, plain):
+    """One layer, time mix then channel mix: ``(x, new_state, new_last_tm,
+    new_last_cm)``."""
+    o, new_state, new_l1 = time_mix(cfg, lp, x, state=state, last=last_tm,
+                                    plain=plain)
+    x = x + o
+    o2, new_l2 = channel_mix(lp, x, last=last_cm)
+    return x + o2, new_state, new_l1, new_l2
+
+
 def forward(cfg, params, tokens, *, caches=None, last_only=False,
             return_hidden=False, plain=False):
     """Returns ``(logits, caches)`` (the final-normed hidden states in
@@ -192,11 +202,8 @@ def forward(cfg, params, tokens, *, caches=None, last_only=False,
         st = caches["state"][li] if decode_mode else None
         l1 = caches["last_tm"][li] if decode_mode else None
         l2 = caches["last_cm"][li] if decode_mode else None
-        o, new_state, new_l1 = time_mix(cfg, lp, x, state=st, last=l1,
-                                        plain=plain)
-        x = x + o
-        o2, new_l2 = channel_mix(lp, x, last=l2)
-        x = x + o2
+        x, new_state, new_l1, new_l2 = L.remat(cfg, _layer, cfg, lp, x, st,
+                                               l1, l2, plain)
         if decode_mode:
             caches["state"][li] = new_state
             caches["last_tm"][li] = new_l1

@@ -108,7 +108,8 @@ def hidden_states(cfg, params, tokens, *, cache=None, cache_len=None,
     per_layer = []
     for i, lp in enumerate(_unbind(params["layers"])):
         kv = None if cache is None else (cache[0][i], cache[1][i])
-        x, aux = _block(cfg, lp, x, positions, kv, cache_len, fresh)
+        x, aux = L.remat(cfg, _block, cfg, lp, x, positions, kv, cache_len,
+                         fresh)
         per_layer.append(aux)
     if last_only:
         x = x[:, -1:]

@@ -43,7 +43,8 @@ def forward(cfg, params, tokens, patches, *, cache=None, cache_len=None,
     positions = base + torch.arange(x.shape[1], device=x.device)
     for i, lp in enumerate(T._unbind(params["layers"])):
         kv = None if cache is None else (cache[0][i], cache[1][i])
-        x, _ = T._block(cfg, lp, x, positions, kv, cache_len, fresh)
+        x, _ = L.remat(cfg, T._block, cfg, lp, x, positions, kv, cache_len,
+                       fresh)
     if last_only:
         x = x[:, -1:]
     x = L.rmsnorm(params["final_norm"], x)

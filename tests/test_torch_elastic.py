@@ -25,6 +25,7 @@ from repro_torch.core.fault import FailureEvent
 from repro_torch.dist import steps as tsteps
 from repro_torch.dist.fault import NoScheduleError
 from repro_torch.launch import elastic, train
+from repro_torch.models.api import build
 from repro_torch.optim import AdamW, cosine_schedule
 from repro_torch.optim.adamw import tree_leaves
 from test_torch_fault import _sched_equal
@@ -276,8 +277,8 @@ def held_to_psum(cfg, params, opt_state, batch, new_params, grad_norm, mesh,
                  opt):
     """(move, grad norm) of one step relative to a psum_dp step on
     ``mesh`` from the same params and state."""
-    step = tsteps.make_train_step(cfg, opt, mesh, ("pod", "data", "model"),
-                                  mode="psum_dp")
+    step = tsteps.make_train_step(build(cfg), opt, mesh,
+                                  ("pod", "data", "model"), mode="psum_dp")
     ref, _, met = step(params, opt_state, batch)
     p0 = _flat(params)
     d_ref, d = _flat(ref) - p0, _flat(new_params) - p0

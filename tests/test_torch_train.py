@@ -29,6 +29,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.dist.steps import (dp_fabric_for_mesh, edst_spec_for_mesh,
                                     make_train_step)
 from repro_torch.launch import train as ttrain
+from repro_torch.models.api import build
 from repro_torch.optim import AdamW as TAdamW
 from repro_torch.optim import cosine_schedule as t_cosine
 from repro_torch.optim.adamw import tree_leaves
@@ -134,8 +135,8 @@ def _init_params(flat):
 def _port_step(mode, params, tokens, engine="pipelined", segments="auto"):
     cfg = tconfigs.get("smollm-135m").reduced()
     opt = TAdamW(t_cosine(3e-4, 20, 100))
-    step = make_train_step(cfg, opt, MESH, NAMES, mode=mode, engine=engine,
-                           segments=segments)
+    step = make_train_step(build(cfg), opt, MESH, NAMES, mode=mode,
+                           engine=engine, segments=segments)
     new_p, _, met = step(params, opt.init(params),
                          {"tokens": torch.as_tensor(tokens, dtype=torch.long)})
     flat = torch.cat([p.reshape(-1) for p in tree_leaves(new_p)]).numpy()

@@ -33,6 +33,7 @@ from repro_torch.dist.fabric import StackedFabric
 from repro_torch.dist.steps import (edst_spec_for_mesh,
                                     fault_runtime_for_mesh, make_train_step)
 from repro_torch.dist.striped import owner_stripes, stripe_slices
+from repro_torch.models.api import build
 from repro_torch.models.transformer import init_lm
 from repro_torch.optim import AdamW, ShardedAdamW, cosine_schedule
 from repro_torch.optim.adamw import tree_leaves
@@ -271,9 +272,10 @@ def test_zero1_model_step_matches_psum_dp():
     params = init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
     tokens = torch.as_tensor(
         np.random.RandomState(5).randint(0, 256, (16, 33)), dtype=torch.long)
-    z = make_train_step(cfg, opt, SHAPE, NAMES, zero1=True, engine="striped",
+    api = build(cfg)
+    z = make_train_step(api, opt, SHAPE, NAMES, zero1=True, engine="striped",
                         telemetry=True)
-    d = make_train_step(cfg, opt, SHAPE, NAMES, mode="psum_dp")
+    d = make_train_step(api, opt, SHAPE, NAMES, mode="psum_dp")
     spec = edst_spec_for_mesh(SHAPE, NAMES, engine="striped")
     p0 = torch.from_numpy(_flat(params))
     zp, zs, zm = z(params, ShardedAdamW(opt).init_for(params, spec, 16),
