@@ -51,7 +51,12 @@ and 2x8 tori's pipelined and striped programs timed on the card at 4 MiB
 and at the full gradient beside the CostModel's prediction, the fitted
 ``cuda`` row, S = 1, 2, 4, 8 against ``segments="auto"``, a measured
 trace and a ``--trace-out`` trace validated, no wave range without a
-profiler, and the ranges' cost under one).  Beside
+profiler, and the ranges' cost under one); last, the process-group
+fabric: the torus allreduce (pipelined and striped, f32 and int8) and the
+edst training over a world-1 NCCL group, bit for bit with the stacked
+fabric, GPipe over smollm-135m's layers on both fabrics, and the reduced
+training over 4 gloo ranks on the host (multi-rank NCCL where the
+machine has two or more cards).  Beside
 WKV6's row it logs where the kernel's time goes ("wkv6 parts": copies
 with one part of its chunk loop compiled out, and mma.sync TF32 alone).
 Every failed check raises, so the exit code is non-zero and no result
@@ -73,6 +78,7 @@ exits non-zero.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import itertools
 import json
@@ -1534,6 +1540,346 @@ def phase_train(dev):
     return per_run
 
 
+# the process-group fabric (phase_fabric): the torus cells it runs at full
+# width on a world-1 NCCL group, the reduced training the gloo ranks run on
+# the host, and the pipeline's cut of smollm-135m's 30 layers
+FABRIC_CELLS = (("pipelined", "off"), ("striped", "off"),
+                ("pipelined", "full"), ("striped", "full"))
+GLOO_RANKS = 4
+FABRIC_TRAIN = ["--arch", "smollm-135m", "--batch", "32", "--seq", "256",
+                "--mesh", "4,4,1", "--log-every", "1"]
+# (--sync, --steps): phase_train's profiled edst run and its psum_dp run
+FABRIC_SYNCS = (("edst", "2"), ("psum_dp", "1"))
+# the peak of a world-1 run may exceed the stacked one's by this much (a
+# process-group step that held (n, P) more would be 8.6 GB over)
+FABRIC_PEAK_SLACK = 64 << 20
+GLOO_TRAIN = ["--reduced", "--steps", "2", "--batch", "16", "--seq", "16",
+              "--mesh", "4,4,1", "--sync", "edst", "--device", "cpu",
+              "--log-every", "1"]
+PIPE_STAGES, PIPE_MICRO, PIPE_MB, PIPE_SEQ = 6, 8, 4, 256
+PIPE_TIMED = ("sequential", "stacked", "nccl-1", "nccl-1", "stacked")
+RANK_JOIN_S = 300
+
+
+def spawn_ranks(target, world, args):
+    """Run ``target(rank, world, init, out_dir, *args)`` on ``world``
+    spawned processes sharing a ``file://`` store in a temporary
+    directory, each joined with its own timeout (a hang fails the phase);
+    returns each rank's ``rank{r}.pt``."""
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        init = f"file://{Path(tmp) / 'store'}"
+        procs = [ctx.Process(target=target, args=(r, world, init, tmp, *args))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(RANK_JOIN_S)
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        assert not hung, ("ranks still running", hung, RANK_JOIN_S)
+        codes = [p.exitcode for p in procs]
+        assert codes == [0] * world, ("rank exit codes", codes)
+        return [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                for r in range(world)]
+
+
+def torchrun_env(rank, world):
+    """The variables ``torchrun`` sets that ``launch/train.py`` reads."""
+    import os
+    os.environ.update(WORLD_SIZE=str(world), RANK=str(rank),
+                      LOCAL_RANK=str(rank))
+
+
+def gloo_train_rank(rank, world, init, out_dir):
+    """One gloo rank of the host check: ``GLOO_TRAIN`` through
+    ``train.main`` under torchrun's environment."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import train
+    torch.set_num_threads(1)
+    torchrun_env(rank, world)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world)
+    try:
+        res = train.main(GLOO_TRAIN)
+        torch.save({"losses": res.losses, "params": flat_of(res.params)},
+                   Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def allreduce_rank(rank, world, init, out_dir, width):
+    """One NCCL rank on ``cuda:rank`` of a multi-card allreduce: its block
+    of rows of the 4x4 torus payload ``(16, width)`` through pipelined S=1
+    on the process-group fabric, against the stacked engine on the same
+    card."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist.fabric import ProcessGroupFabric, StackedFabric
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=init, rank=rank,
+                            world_size=world, device_id=dev)
+    try:
+        spec = engine_specs((4, 4))["pipelined"]
+        g = torch.Generator(device=dev).manual_seed(1)
+        x = torch.randn((N_VERT, width), generator=g, device=dev)
+        want = run_engine("pipelined", x, spec, StackedFabric(N_VERT, dev),
+                          "off")
+        fabric = ProcessGroupFabric(N_VERT, dev)
+        mine = x[fabric.lo:fabric.hi].contiguous()
+        del x
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = run_engine("pipelined", mine, spec, fabric, "off")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        torch.save({"equal": torch.equal(got, want[fabric.lo:fabric.hi]),
+                    "rows": (fabric.lo, fabric.hi), "seconds": secs},
+                   Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def pipeline_stages(dev):
+    """smollm-135m's layer body in f32 as ``pipeline_apply``'s stage:
+    ``(stage_fn, stage_params, x, sequential)``, ``PIPE_STAGES`` stages
+    of its 30 layers, ``PIPE_MICRO`` random microbatches of ``PIPE_MB``
+    x ``PIPE_SEQ`` hidden states, and ``sequential(x)``: the same
+    microbatches through the 30 layers in order."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import transformer as TR
+    from repro_torch.models.api import build
+    cfg = dataclasses.replace(configs.get("smollm-135m"),
+                              act_dtype_name="float32")
+    params = build(cfg).init(torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    per = cfg.n_layers // PIPE_STAGES
+    layers = TR._unbind(params["layers"])
+    stage_params = [layers[s * per:(s + 1) * per]
+                    for s in range(PIPE_STAGES)]
+    pos = torch.arange(PIPE_SEQ, device=dev)
+
+    def run_layers(lps, h):
+        for lp in lps:
+            h, _ = TR._block(cfg, lp, h, pos)
+        return h
+
+    def stage_fn(local, h):
+        return torch.stack([run_layers(local[i], h[i])
+                            for i in range(h.shape[0])])
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((PIPE_MICRO, PIPE_MB, PIPE_SEQ, cfg.d_model),
+                    generator=g, device=dev)
+
+    def sequential(x):
+        return torch.stack([run_layers(layers, xm) for xm in x])
+
+    return stage_fn, stage_params, x, sequential
+
+
+def phase_fabric(dev):
+    """The process-group fabric on the card: a world-1 NCCL group (rank 0
+    of 1, a ``FileStore`` in a temporary directory) carries the full-width
+    4x4 torus allreduce (pipelined S=1 and striped, f32 and int8), each
+    result equal bit for bit to the stacked fabric's (``phase_allreduce``'s
+    input and engines), both timed; ``launch/train.py``'s ``main`` at world
+    size 1 on NCCL with ``phase_train``'s arguments (edst, 2 steps;
+    psum_dp, 1 step), its losses and parameters equal bit for bit to a
+    stacked run's and its peak memory within ``FABRIC_PEAK_SLACK`` of it;
+    and
+    ``pipeline_apply`` of smollm-135m's layer body (6 stages of 5 layers,
+    8 microbatches of 4 x 256, f32) on both fabrics, equal bit for bit to
+    the 30 layers in order.  Then 4 gloo ranks on the host train the
+    reduced smollm-135m 2 edst steps on the torus, equal bit for bit to a
+    stacked host run, and, with two or more cards, min(count, 4) NCCL
+    ranks run the full-width allreduce against the stacked engine.  Returns
+    ``{run: {kernel: launches}}``."""
+    import os
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist.fabric import ProcessGroupFabric, StackedFabric
+    from repro_torch.dist.pipeline import bubble_fraction, pipeline_apply
+    from repro_torch.launch import train
+    t_phase = time.perf_counter()
+    per_run = {}
+    specs = engine_specs((4, 4))
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            str(Path(tmp) / "store"), 1), rank=0, world_size=1,
+            device_id=dev)
+        try:
+            g = torch.Generator(device=dev).manual_seed(1)
+            x = torch.randn((N_VERT, N_PARAMS), generator=g, device=dev)
+            stacked = StackedFabric(N_VERT, dev)
+            pg = ProcessGroupFabric(N_VERT, dev)
+            assert pg.world == 1 and pg.rows == N_VERT, (pg.world, pg.rows)
+            log(f"fabric: a world-1 {pg.backend} group on {dev}")
+            for engine, codec in FABRIC_CELLS:
+                spec = specs[engine]
+                want = run_engine(engine, x, spec, stacked, codec)
+                torch.cuda.synchronize()
+                reset_all()
+                got = run_engine(engine, x, spec, pg, codec)
+                torch.cuda.synchronize()
+                tag = f"fabric nccl-1 {engine} torus4x4 {codec}"
+                per_run[tag] = c = counts()
+                equal = torch.equal(got, want)
+                del got, want
+                ms_stacked = timed(lambda: run_engine(engine, x, spec,
+                                                      stacked, codec))
+                ms_pg = timed(lambda: run_engine(engine, x, spec, pg, codec))
+                log(f"{tag}: equal to the stacked fabric {equal}; stacked "
+                    f"{ms_stacked / 1e3!r} s, world-1 NCCL {ms_pg / 1e3!r} s "
+                    f"({ms_pg / ms_stacked:.4f}x), launches {c}")
+                assert equal, tag
+                assert c["tree_combine"] > 0, (tag, c)
+                torch.cuda.empty_cache()
+            del x
+            torch.cuda.empty_cache()
+
+            # the group's first collective (the cells above issued none)
+            # and a second, timed: what the first NCCL train step pays
+            one, coll_s = torch.zeros(1, device=dev), []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                dist.all_reduce(one)
+                torch.cuda.synchronize()
+                coll_s.append(time.perf_counter() - t0)
+            log(f"fabric nccl-1 group: first all_reduce {coll_s[0]!r} s, "
+                f"second {coll_s[1]!r} s")
+
+            # launch/train.py at world size 1 on NCCL against the stacked
+            # run, each with its peak memory
+            for sync, steps in FABRIC_SYNCS:
+                argv = FABRIC_TRAIN + ["--sync", sync, "--steps", steps,
+                                       "--device", dev.type]
+                assert "WORLD_SIZE" not in os.environ
+                torch.cuda.reset_peak_memory_stats()
+                ref = train.main(argv)
+                ref_peak = torch.cuda.max_memory_allocated()
+                # the stacked parameters wait on the host, out of the
+                # world-1 run's peak
+                ref_losses, ref_params = ref.losses, flat_of(ref.params).cpu()
+                ref_secs = ref.step_seconds
+                del ref
+                torch.cuda.empty_cache()
+                torchrun_env(0, 1)
+                try:
+                    reset_all()
+                    torch.cuda.reset_peak_memory_stats()
+                    t0 = time.perf_counter()
+                    res = train.main(argv)
+                    torch.cuda.synchronize()
+                    t_res = time.perf_counter() - t0
+                    peak = torch.cuda.max_memory_allocated()
+                    tag = f"fabric nccl-1 train {sync} torus4x4"
+                    per_run[tag] = c = counts()
+                finally:
+                    for key in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
+                        os.environ.pop(key)
+                equal = res.losses == ref_losses and torch.equal(
+                    flat_of(res.params).cpu(), ref_params)
+                log(f"{tag}: losses {res.losses} (stacked {ref_losses}), "
+                    f"parameters and losses equal {equal}; s/step "
+                    f"{res.step_seconds} (stacked, just before: {ref_secs}), "
+                    f"{t_res!r} s in all, peak memory {peak / 1e9:.4f} GB "
+                    f"(stacked {ref_peak / 1e9:.4f} GB), launches {c}")
+                assert equal, f"{tag} differs from the stacked run"
+                assert peak <= ref_peak + FABRIC_PEAK_SLACK, (tag, peak,
+                                                              ref_peak)
+                if sync == "edst":
+                    assert c["tree_combine"] > 0, c
+                del res, ref_params
+                torch.cuda.empty_cache()
+
+            # GPipe over smollm-135m's layers on both fabrics
+            with torch.no_grad():
+                stage_fn, stage_params, xm, sequential = pipeline_stages(dev)
+                want = sequential(xm)
+                runs = {"sequential": lambda: sequential(xm)}
+                outs = {}
+                for name, fab in (("stacked", StackedFabric(PIPE_STAGES,
+                                                            dev)),
+                                  ("nccl-1", ProcessGroupFabric(PIPE_STAGES,
+                                                                dev))):
+                    outs[name] = pipeline_apply(stage_fn, stage_params, xm,
+                                                fab)
+                    runs[name] = functools.partial(
+                        pipeline_apply, stage_fn, stage_params, xm, fab)
+                # each timed after a warm-up call, the fabrics in the
+                # order stacked, NCCL, NCCL, stacked, so that neither pays
+                # the first call's setup or a drift of the host's speed
+                secs = {}
+                for name in PIPE_TIMED:
+                    secs.setdefault(name, []).append(
+                        timed(runs[name], rounds=3) / 1e3)
+            equal = {name: torch.equal(outs[name], want)
+                     for name in ("stacked", "nccl-1")}
+            log(f"fabric pipeline smollm-135m ({PIPE_STAGES} stages of "
+                f"5 layers, {PIPE_MICRO} x {PIPE_MB} x {PIPE_SEQ}, f32): "
+                f"equal to the 30 layers in order {equal}, finite "
+                f"{bool(torch.isfinite(want).all())}; warm s (each the "
+                f"median of 3, in the order {PIPE_TIMED}): sequential "
+                f"{secs['sequential']}, stacked {secs['stacked']}, world-1 "
+                f"NCCL {secs['nccl-1']} (bubble {bubble_fraction(PIPE_MICRO, PIPE_STAGES):.4f})")
+            assert all(equal.values()), equal
+            assert torch.isfinite(want).all()
+            del outs, runs, want, xm, stage_params
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+
+    # gloo ranks on the host: the multi-rank exchange, on this machine's
+    # torch, against a stacked host run (one thread, as each rank runs)
+    t0 = time.perf_counter()
+    got = spawn_ranks(gloo_train_rank, GLOO_RANKS, ())
+    t_gloo = time.perf_counter() - t0
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        ref = train.main(GLOO_TRAIN)
+    finally:
+        torch.set_num_threads(threads)
+    ref_params = flat_of(ref.params)
+    equal = [r["losses"] == ref.losses and torch.equal(r["params"],
+                                                         ref_params)
+             for r in got]
+    log(f"fabric gloo CPU check ({GLOO_RANKS} ranks on the host, reduced "
+        f"smollm-135m, edst, 4x4 torus, 4 vertices a rank, 2 steps): "
+        f"losses {got[0]['losses']} (stacked {ref.losses}), every rank "
+        f"equal to the stacked host run {equal}, {t_gloo!r} s")
+    assert all(equal), equal
+
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        world = min(cards, 4)
+        got = spawn_ranks(allreduce_rank, world, (N_PARAMS,))
+        log(f"fabric nccl-{world}: full-width pipelined torus4x4 f32 over "
+            f"{world} cards, rows {[r['rows'] for r in got]}, equal to the "
+            f"stacked engine {[r['equal'] for r in got]}, s "
+            f"{[r['seconds'] for r in got]}")
+        assert all(r["equal"] for r in got)
+    else:
+        log(f"fabric multi-rank NCCL: not run: {cards} CUDA device here, "
+            "and NCCL refuses two ranks of one communicator on one GPU "
+            "(\"Duplicate GPU detected\"), so the multi-rank exchange is "
+            "held over gloo on the host above")
+    log(f"fabric phase: {time.perf_counter() - t_phase!r} s")
+    return per_run
+
+
 # The token families trained through launch/train.py at full width, depth
 # cut so that the stacked fabric's (n, P) gradient rows, their waves and
 # AdamW fit the card: (arch, layers, --mesh).  recurrentgemma-2b keeps one
@@ -2591,11 +2937,15 @@ def main():
     per_run.update(phase_zero1(dev))
     per_run.update(phase_elastic(dev))
     per_run.update(phase_telemetry(dev))
+    # last: the NCCL group's memory outside PyTorch's pool (its comm and
+    # streams) would take from the serving phase's f32 checks, which fill
+    # the card to within 1 GB
+    per_run.update(phase_fabric(dev))
     launches = {name: sum(c[name] for c in per_run.values())
                 for name in counts()}
     log(f"launches over the allreduce, training (smollm-135m and the other "
-        f"token families), serving, zero1, elastic and telemetry runs: "
-        f"{launches}")
+        f"token families), process-group fabric, serving, zero1, elastic "
+        f"and telemetry runs: {launches}")
     for name, n in launches.items():
         assert n > 0, f"{name} never launched on its path"
     for r in rows:

@@ -16,18 +16,22 @@ with ``mode`` choosing how the data-parallel gradients are combined:
     (:func:`edst_spec_for_mesh`), through ``tree_allreduce`` in the
     compiled form ``engine`` names (:data:`ENGINES`).
 
-For the manual modes the DP axes (``pod``, ``data``) form a
-:class:`StackedFabric` of n vertices on one device.  Parameters are
-replicated, so one copy is held; vertex v's loss and gradient on its
-batch shard are computed in turn into row v of an ``(n, P)``
-flat-gradient buffer, which is then summed across vertices, divided by n
-and handed to AdamW.  The flat layout is the reference's ``ravel_pytree``
-order (sorted keys at every level, each leaf in C order), so the EDST
-chunk rows and their int8 scales cover the same elements as there.  A
-``model`` axis is accepted and not replicated: the reference's manual
-sync modes leave it unused.  ``grad_accum`` splits each vertex's shard
-(the whole batch under ``gspmd``) into that many microbatches, whose mean
-gradient is the shard's.
+For the manual modes the DP axes (``pod``, ``data``) form a fabric of n
+vertices: a :class:`StackedFabric` on one device, or, over the ranks of a
+``torch.distributed`` group, a :class:`ProcessGroupFabric` whose rank r
+holds a contiguous block of them (one vertex a rank is the reference's
+``shard_map`` layout).  Parameters are replicated, so each rank holds one
+copy; each local vertex's loss and gradient on its batch shard are
+computed in turn into its row of a ``(rows, P)`` flat-gradient buffer,
+which is then summed across all n vertices, divided by n and handed to
+AdamW, so every rank ends a step with the same parameters.  The flat
+layout is the reference's ``ravel_pytree`` order (sorted keys at every
+level, each leaf in C order), so the EDST chunk rows and their int8
+scales cover the same elements as there.  A ``model`` axis is accepted
+and not replicated: the reference's manual sync modes leave it unused.
+``grad_accum`` splits each vertex's shard (the whole batch under
+``gspmd``) into that many microbatches, whose mean gradient is the
+shard's.
 
 ``zero1=True`` replaces the allreduce and the dense optimizer with the
 ZeRO-1 pipeline: reduce-scatter the gradients onto owner stripes, run the
@@ -43,6 +47,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core import topologies as topo
 from ..core.collectives import (FusedAllreduceSpec, PipelinedAllreduceSpec,
@@ -53,7 +58,8 @@ from ..core.collectives import (FusedAllreduceSpec, PipelinedAllreduceSpec,
 from ..core.edst_star import star_edsts
 from ..optim.adamw import tree_leaves
 from ..optim.sharded import ShardedAdamW, ShardedOptState, decay_mask
-from .fabric import StackedFabric
+from .fabric import (ProcessGroupFabric, StackedFabric, gather_blocks,
+                     stacked_only, vertex_blocks, world_size)
 from .fault import FaultAwareAllreduce
 from .health import payload_checksum, replication_divergence
 from .striped import (owner_stripes, rs_conservation_gap, tree_allgather,
@@ -212,7 +218,7 @@ def make_train_step(api, opt, mesh_shape, axis_names, mode: str = "edst",
                     segments="auto", zero1: bool = False,
                     fault_runtime: FaultAwareAllreduce | None = None,
                     telemetry: bool = False, codec=None, grad_accum: int = 1,
-                    loss=None):
+                    loss=None, group=None):
     """Build the train step of ``api`` (a
     :class:`repro_torch.models.api.ModelAPI`) for a mesh (see the module
     docstring).
@@ -237,6 +243,21 @@ def make_train_step(api, opt, mesh_shape, axis_names, mode: str = "edst",
     vertices), ``grad_norm``, ``lr`` and the loss's own metrics
     (``xent``, the MoE's ``moe_load_balance`` and ``moe_router_z``),
     each averaged over the vertices.
+
+    ``group`` (a ``torch.distributed`` process group; the default group
+    when ``torch.distributed`` is initialised with more than one rank)
+    runs the step over its ranks: each computes its block of vertices
+    (:func:`~repro_torch.dist.fabric.vertex_blocks`), ``edst`` syncs
+    through the engine on a :class:`ProcessGroupFabric`, ``psum_dp``
+    sums its local rows and ``all_reduce``s the sum (the reference's
+    ``psum``), and ``gspmd`` all-reduces the mean of each rank's even
+    share of the batch, as XLA's partition of the reference's step does.
+    The loss and the metrics are gathered in vertex order, so ``edst``
+    equals the stacked step bit for bit; ``psum_dp`` and ``gspmd``
+    associate the gradient's sum over the ranks otherwise, and agree with
+    it within f32 rounding.  ``zero1``, ``fault_runtime`` and
+    ``telemetry`` run on one rank only (a world size above 1 raises,
+    :func:`~repro_torch.dist.fabric.stacked_only`).
 
     ``zero1=True`` (``mode="edst"``, striped engine) is the ZeRO-1 step:
     the gradients are ``tree_reduce_scatter``'d onto owner stripes,
@@ -284,8 +305,23 @@ def make_train_step(api, opt, mesh_shape, axis_names, mode: str = "edst",
     if grad_accum < 1:
         raise ValueError(f"grad_accum={grad_accum} must be >= 1")
     loss_of = loss if loss is not None else api.loss_fn
-    # gradient rows: one a vertex, or the whole batch's one under gspmd
-    rows_n = 1 if mode == "gspmd" else n
+    # over a process group each rank holds a block of the vertices (under
+    # gspmd: an even share of the batch); stacked, one rank holds them all
+    pg = group is not None or world_size() > 1
+    world = dist.get_world_size(group) if pg else 1
+    rank = dist.get_rank(group) if pg else 0
+    stacked_only({"zero1": zero1, "fault_runtime": fault_runtime is not None,
+                  "telemetry": telemetry}, world)
+    if mode == "gspmd":
+        counts = [1] * world
+        lo, hi = rank, rank + 1
+    else:
+        blocks = vertex_blocks(n, world)
+        counts = [b - a for a, b in blocks]
+        lo, hi = blocks[rank]
+    # gradient rows: one a local vertex, or this rank's batch share's one
+    # under gspmd
+    rows_n = hi - lo
     spec = fault_sync = z_rs = z_sl = z_ag = None
     if mode == "edst" and n > 1:
         if fault_runtime is not None:
@@ -315,8 +351,16 @@ def make_train_step(api, opt, mesh_shape, axis_names, mode: str = "edst",
     def fabric_on(dev):
         fabric = fabrics.get(dev)
         if fabric is None:
-            fabric = fabrics[dev] = StackedFabric(n, dev)
+            fabric = fabrics[dev] = ProcessGroupFabric(n, dev, group) if pg \
+                else StackedFabric(n, dev)
         return fabric
+
+    def mean_over_all(vals):
+        """The mean of one value a local row over every rank's rows,
+        gathered in vertex order and reduced as one tensor, so that its
+        bits do not depend on how the rows are spread over the ranks."""
+        t = torch.stack(vals)
+        return (gather_blocks(t, counts, group) if pg else t).mean()
 
     def wire_gauge(nbytes: int, itemsize: int, sid: int) -> float:
         if fault_runtime is not None:
@@ -327,16 +371,19 @@ def make_train_step(api, opt, mesh_shape, axis_names, mode: str = "edst",
         return 0.0
 
     def local_grads(params, batch):
-        """``(rows, P)`` gradients (row v: the mean gradient of vertex v's
-        microbatches; under gspmd one row, the whole batch's), the loss
-        and the loss's metrics, each the mean over the vertices of its
-        mean over the microbatches."""
+        """``(rows, P)`` gradients (a row a local vertex: the mean
+        gradient of its microbatches; under gspmd one row, the gradient of
+        this rank's share of the batch, the whole batch's when stacked),
+        the loss and the loss's metrics, each the mean over all vertices
+        (ranks, under gspmd) of its mean over the microbatches."""
         leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
         size = sum(p.numel() for p in leaves)
         grads = torch.empty((rows_n, size), dtype=leaves[0].dtype,
                             device=leaves[0].device)
         losses, auxs = [], []
-        for v, part in enumerate(_split_batch(batch, rows_n)):
+        parts = _split_batch(batch, world, "ranks") if mode == "gspmd" \
+            else _split_batch(batch, n)
+        for v, part in enumerate(parts[lo:hi]):
             row = grads[v]
             mlosses, maux = [], []
             for i, mb in enumerate(_split_batch(part, grad_accum,
@@ -356,16 +403,21 @@ def make_train_step(api, opt, mesh_shape, axis_names, mode: str = "edst",
                 row.div_(grad_accum)
             losses.append(sum(mlosses) / grad_accum)
             auxs.append(_mean_aux(maux))
-        return grads, torch.stack(losses).mean(), _mean_aux(auxs)
+        return grads, mean_over_all(losses), {
+            k: mean_over_all([a[k] for a in auxs]) for k in auxs[0]}
 
     def sync(g, sid):
-        """(n, P) per-vertex gradients -> (P,) mean gradient, and the
+        """(rows, P) per-vertex gradients -> (P,) mean gradient, and the
         telemetry of the sync."""
         tel = {}
-        if g.shape[0] == 1:
+        if mode == "gspmd" or n == 1:
             out = g[0]
+            if pg:      # the mean of the ranks' shares, as XLA's partition
+                dist.all_reduce(out, group=group)
+                out = out / world
         elif mode == "psum_dp":
-            out = g.sum(0) / n
+            # the local rows' sum, then one all_reduce over the ranks
+            out = fabric_on(g.device).psum(g)[0] / n
             if telemetry:
                 tel = {"sync_dev": 0.0, "sync_wire_bytes": 0.0}
         else:

@@ -1,4 +1,4 @@
-"""Striped EDST collectives on a stacked fabric: reduce-scatter, allgather,
+"""Striped EDST collectives on a fabric: reduce-scatter, allgather,
 and the composed bandwidth-optimal allreduce (the reference's
 ``repro.dist.striped``).
 
@@ -12,13 +12,14 @@ side of it, and allgather waves fan the finished stripes back out as a
 pure gather.  Per-wave wire bytes drop from ``m`` to
 ``ceil(m/n) * slots-in-window`` at roughly twice the wave count.
 
-Execution model: state is the ``(n, k, mrow)`` stack of every vertex's
-padded chunk rows.  Every window is one *circular* interval of a row (a
-subtree and its complement are both contiguous mod n), so it is at most
-two contiguous slices, and each wave runs as a host loop over the
-vertices: a sender copies its window (the wave's wire width, from its
-offset) into its row of the payload, the fabric moves the payload, and a
-receiver adds (reduce-scatter, through the tree-combine kernel) or copies
+Execution model: state is the ``(rows, k, mrow)`` stack of the padded
+chunk rows of the fabric's local vertices (all n on a stacked fabric,
+this rank's block on a process-group fabric).  Every window is one
+*circular* interval of a row (a subtree and its complement are both
+contiguous mod n), so it is at most two contiguous slices, and each wave
+runs as a host loop over the local vertices: a sender copies its window
+(the wave's wire width, from its offset) into its row of the payload,
+the fabric moves the payload, and a receiver adds (reduce-scatter, through the tree-combine kernel) or copies
 (allgather) the arrival's true length into its own window.  The
 reference rolls whole rows and adds a one-hot ``(k, mrow)`` contribution
 under a circular mask; the elements it covers outside the window gain
@@ -77,26 +78,32 @@ def _rows_in(flat, sizes, mrow):
 
 
 def _run_wave(state, bw, fabric, rs_wire, ag_wire):
-    """Execute ONE bound striped wave on the ``(n, k, mrow)`` state, in
-    place.  Every sender ships ``bw.wire`` elements from its window's
-    offset (the reference's ``roll(row, -off)[:wire]``: a codec's scale
-    sees the same elements); vertices nobody sends to receive zeros and
-    land nothing."""
-    n, _, mrow = state.shape
-    payload = torch.zeros((n, bw.wire), dtype=state.dtype,
+    """Execute ONE bound striped wave on the ``(rows, k, mrow)`` state of
+    the fabric's local vertices, in place.  Every sender ships ``bw.wire``
+    elements from its window's offset (the reference's ``roll(row,
+    -off)[:wire]``: a codec's scale sees the same elements); vertices
+    nobody sends to receive zeros and land nothing."""
+    rows, _, mrow = state.shape
+    payload = torch.zeros((rows, bw.wire), dtype=state.dtype,
                           device=state.device)
     for s, _ in bw.perm:
+        if not fabric.owns(s):
+            continue
+        r = s - fabric.lo
         j, off = int(bw.send_tree[s]), int(bw.send_off[s])
         for lo, at, width in _windows(off, bw.wire, mrow):
-            payload[s, at:at + width] = state[s, j, lo:lo + width]
+            payload[r, at:at + width] = state[r, j, lo:lo + width]
     recv = _send(payload, fabric, bw.perm,
                  rs_wire if bw.op == REDUCE else ag_wire)
     del payload
     for _, d in bw.perm:
+        if not fabric.owns(d):
+            continue
+        r = d - fabric.lo
         j, off = int(bw.recv_tree[d]), int(bw.recv_off[d])
         for lo, at, width in _windows(off, int(bw.recv_len[d]), mrow):
-            window = state[d, j, lo:lo + width]
-            arrival = recv[d, at:at + width]
+            window = state[r, j, lo:lo + width]
+            arrival = recv[r, at:at + width]
             if bw.op == REDUCE:
                 window.copy_(_acc(window, arrival))
             else:
@@ -115,21 +122,21 @@ def _run_waves(state, waves, fabric, rs_wire, ag_wire):
 
 def _prep(x, spec, fabric, fractions):
     _check_fabric(x, spec, fabric)
-    flat = x.reshape(spec.n, -1)
+    flat = x.reshape(fabric.rows, -1)
     bound = striped_tables(spec, flat.shape[1], _normalize(fractions))
     return flat, bound
 
 
-def _cut_own(state, spec, bound):
-    """Cut every vertex's own stripe out of each of its k rows (a single
-    slot never wraps): ``(n, k, smax)``, zero past each stripe's width."""
-    n = spec.n
-    own = torch.zeros((n, spec.k, bound.smax), dtype=state.dtype,
+def _cut_own(state, spec, bound, fabric):
+    """Cut every local vertex's own stripe out of each of its k rows (a
+    single slot never wraps): ``(rows, k, smax)``, zero past each
+    stripe's width."""
+    own = torch.zeros((fabric.rows, spec.k, bound.smax), dtype=state.dtype,
                       device=state.device)
     for j in range(spec.k):
-        for v in range(n):
+        for r, v in enumerate(fabric.vertices):
             off, length = int(bound.own_off[j, v]), int(bound.own_len[j, v])
-            own[v, j, :length] = state[v, j, off:off + length]
+            own[r, j, :length] = state[r, j, off:off + length]
     return own
 
 
@@ -146,7 +153,7 @@ def tree_reduce_scatter(x, spec: StripedCollectiveSpec, fabric,
     rs_wire, _ = _wires(quantize, codec, x.dtype, x.device)
     state = _rows_in(flat, bound.sizes, bound.mrow)
     state = _run_waves(state, bound.rs_waves, fabric, rs_wire, None)
-    return _cut_own(state, spec, bound)
+    return _cut_own(state, spec, bound, fabric)
 
 
 def stripe_slices(x, spec: StripedCollectiveSpec, fabric, fractions=None):
@@ -156,7 +163,8 @@ def stripe_slices(x, spec: StripedCollectiveSpec, fabric, fractions=None):
     if spec.k == 0 or x.numel() == 0:
         return x
     flat, bound = _prep(x, spec, fabric, fractions)
-    return _cut_own(_rows_in(flat, bound.sizes, bound.mrow), spec, bound)
+    return _cut_own(_rows_in(flat, bound.sizes, bound.mrow), spec, bound,
+                    fabric)
 
 
 def owner_stripes(vec, spec: StripedCollectiveSpec, fractions=None):
@@ -187,23 +195,24 @@ def tree_allgather(owned, spec: StripedCollectiveSpec, fabric, shape,
     ``shape``-d array (every stripe of every tree)."""
     if spec.k == 0:
         return owned
-    if owned.shape[0] != spec.n or fabric.n != spec.n:
-        raise ValueError(f"spec for n={spec.n}, fabric n={fabric.n}, "
-                         f"owned {tuple(owned.shape)}")
+    if fabric.n != spec.n or owned.shape[0] != fabric.rows:
+        raise ValueError(f"spec for n={spec.n}, fabric n={fabric.n} with "
+                         f"{fabric.rows} local rows, owned "
+                         f"{tuple(owned.shape)}")
     size = 1
     for d in shape:
         size *= int(d)
     bound = striped_tables(spec, size, _normalize(fractions))
     _, ag_wire = _wires(quantize, codec, owned.dtype, owned.device)
-    state = torch.zeros((spec.n, spec.k, bound.mrow), dtype=owned.dtype,
-                        device=owned.device)
+    state = torch.zeros((fabric.rows, spec.k, bound.mrow),
+                        dtype=owned.dtype, device=owned.device)
     for j in range(spec.k):
-        for v in range(spec.n):
+        for r, v in enumerate(fabric.vertices):
             off, length = int(bound.own_off[j, v]), int(bound.own_len[j, v])
-            state[v, j, off:off + length] = owned[v, j, :length]
+            state[r, j, off:off + length] = owned[r, j, :length]
     state = _run_waves(state, bound.ag_waves, fabric, None, ag_wire)
     return _rows_out(list(state.unbind(1)), bound.sizes, size) \
-        .reshape(spec.n, *shape)
+        .reshape(fabric.rows, *shape)
 
 
 def striped_allreduce(x, spec: StripedCollectiveSpec, fabric,

@@ -1,4 +1,4 @@
-"""k-tree allreduce on a stacked fabric (the paper's Sec. 1.1 payoff, run):
+"""k-tree allreduce on a fabric (the paper's Sec. 1.1 payoff, run):
 the reference's ``repro.dist.tree_allreduce``, engine for engine.
 
 Three executors share this module (a fourth, the striped reduce-scatter /
@@ -20,10 +20,13 @@ allgather engine, lives in :mod:`repro_torch.dist.striped`):
     hops: the original baseline.
 
 Where the reference runs inside ``shard_map`` on one vertex's ``(m,)``
-chunk, here every tensor holds all n vertices as rows
-(:class:`~repro_torch.dist.fabric.StackedFabric`), so a per-vertex table
-becomes a column mask and a per-vertex pack of one chunk becomes the row
-form of the codec over n vertex rows, one scale per vertex.  Every state a
+chunk, here every tensor holds the fabric's local vertices as rows: all n
+on a :class:`~repro_torch.dist.fabric.StackedFabric`, this rank's block on
+a :class:`~repro_torch.dist.fabric.ProcessGroupFabric` (``fabric.rows``
+of them).  So a per-vertex table becomes a column mask and a per-vertex
+pack of one chunk becomes the row form of the codec over the vertex
+rows, one scale per vertex; every row's arithmetic is its own, so a rank
+computes the same bits for its rows as the stacked fabric does.  Every state a
 kernel takes is a contiguous ``(n, m)`` block: k chunk rows (and, at S>1,
 k x S segment blocks) are kept as separate tensors, never as strided views
 of one buffer, and a hop that lands only in some rows accumulates row by
@@ -369,8 +372,9 @@ def run_tree_program(c, tree: TreeProgram, fabric, quantize: bool = False,
 
 def per_tree_allreduce(x, spec: TreeAllreduceSpec, fabric,
                        quantize: bool = False):
-    """Allreduce (sum) over the stacked vertices of ``x`` (``(n, ...)``),
-    one serial chain of hops per tree (the pre-fusion executor).  As in the
+    """Allreduce (sum) over the fabric's vertices of ``x`` (``(rows, ...)``,
+    the local ones), one serial chain of hops per tree (the pre-fusion
+    executor).  As in the
     reference, the codec is the device's default (``resolve_codec(None,
     device)``: int8 on CUDA, off on the CPU)."""
     if spec.k == 0 or x.numel() == 0:
@@ -378,7 +382,7 @@ def per_tree_allreduce(x, spec: TreeAllreduceSpec, fabric,
     _check_fabric(x, spec, fabric)
     _note_trace("per_tree", spec, x,
                 codec=resolve_codec(None, x.device) if quantize else None)
-    n, shape, dtype, k = spec.n, x.shape, x.dtype, spec.k
+    n, shape, dtype, k = fabric.rows, x.shape, x.dtype, spec.k
     flat = x.reshape(n, -1)
     size = flat.shape[1]
     pad = (-size) % k
@@ -401,9 +405,10 @@ def per_tree_allreduce(x, spec: TreeAllreduceSpec, fabric,
 # ---------------------------------------------------------------------------
 
 def _check_fabric(x, spec, fabric):
-    if x.shape[0] != spec.n or fabric.n != spec.n:
-        raise ValueError(f"spec for n={spec.n}, fabric n={fabric.n}, "
-                         f"payload {tuple(x.shape)}")
+    if fabric.n != spec.n or x.shape[0] != fabric.rows:
+        raise ValueError(f"spec for n={spec.n}, fabric n={fabric.n} with "
+                         f"{fabric.rows} local rows, payload "
+                         f"{tuple(x.shape)}")
 
 
 def _check_fractions(spec, fractions):
@@ -525,7 +530,7 @@ def fused_tree_allreduce(x, spec: FusedAllreduceSpec, fabric,
     _note_trace("fused", spec, x, codec=codec if quantize else None,
                 fractions=fractions)
     r_wire = _REDUCE_WIRE[codec]
-    n, shape, dtype, k = spec.n, x.shape, x.dtype, spec.k
+    n, shape, dtype, k = fabric.rows, x.shape, x.dtype, spec.k
     flat = x.reshape(n, -1)
     size = flat.shape[1]
     sizes, m = _row_sizes(size, k, fractions)
@@ -610,7 +615,7 @@ def pipelined_tree_allreduce(x, spec: PipelinedAllreduceSpec, fabric,
     if x.dtype not in _FLOATS:
         codec = "off"       # integer payloads always travel verbatim
     quantize = codec != "off"   # model-disabled codec: the f32 program
-    n, shape, dtype = spec.n, x.shape, x.dtype
+    n, shape, dtype = fabric.rows, x.shape, x.dtype
     flat = x.reshape(n, -1)
     size = flat.shape[1]
     sizes, mrow = _row_sizes(size, spec.k, fractions)

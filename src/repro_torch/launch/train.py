@@ -30,17 +30,31 @@ registry as JSON, ``--journal-out`` the recovery journal as JSONL.
 
     python -m repro_torch.launch.train --arch smollm-135m --steps 3 \
         --batch 32 --seq 256 --mesh 4,4,1 --zero1 --ckpt-dir /tmp/ck
+
+Under ``torchrun`` (``WORLD_SIZE`` set) the run spreads ``--mesh``'s
+data-parallel vertices over the ranks, a contiguous block each
+(:class:`~repro_torch.dist.fabric.ProcessGroupFabric`): the process group
+comes from the environment, NCCL with ``cuda:LOCAL_RANK`` for ``--device
+cuda`` and gloo for ``--device cpu``, and rank 0 alone logs and writes
+the metrics, traces and checkpoints.  A world size above the data extent,
+a ``model`` axis above 1, and ``--zero1``, ``--recover`` and
+``--trace-out`` above one rank are refused before anything is built.
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --reduced --steps 2 --batch 16 --seq 64 --mesh 4,4,1 --device cpu
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 from contextlib import nullcontext
 from dataclasses import dataclass, field
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch.ckpt import (latest_step, restore, restore_sharded,
@@ -48,6 +62,7 @@ from repro_torch.ckpt import (latest_step, restore, restore_sharded,
 from repro_torch.core.collectives import owner_element_map
 from repro_torch.core.device import resolve_device
 from repro_torch.data import SyntheticLMStream
+from repro_torch.dist.fabric import stacked_only
 from repro_torch.dist.steps import (ENGINES, dp_extent, edst_spec_for_mesh,
                                     fault_runtime_for_mesh, make_train_step)
 from repro_torch.models.api import build
@@ -151,13 +166,21 @@ class Run:
     monitor: object = None
     controller: object = None
     zspec: object = None         # --zero1: the striped spec
+    rank: int = 0                # under torchrun: this process's rank
+    owns_group: bool = False     # setup initialised it: main destroys it
 
     def batch(self, step: int) -> dict:
         return {"tokens": torch.as_tensor(self.stream.batch(step),
                                           dtype=torch.long,
                                           device=self.device)}
 
+    def log(self, msg: str) -> None:
+        if self.rank == 0:
+            print(msg, flush=True)
+
     def save(self, step: int, params, opt_state) -> None:
+        if self.rank != 0:      # every rank holds the same state
+            return
         if self.zspec is not None:
             size = sum(p.numel() for p in tree_leaves(params))
             save_sharded_checkpoint(self.args.ckpt_dir, step, params,
@@ -181,11 +204,45 @@ class Run:
         else:
             state, start, _ = restore(ckpt, {"p": params, "o": opt_state})
             params, opt_state = state["p"], state["o"]
-        print(f"[train] resumed from step {start}")
+        self.log(f"[train] resumed from step {start}")
         return params, opt_state, start
 
 
 TOKEN_FAMILIES = ("lm", "moe", "rglru", "rwkv6")
+
+
+def dist_setup(args, dims, names):
+    """Under ``torchrun`` (``WORLD_SIZE`` set): refuse what does not
+    spread over ranks, then ``(device, group, rank, initialised here)``
+    with the process group from the environment (or the one already
+    initialised).  Without ``WORLD_SIZE``: ``--device`` and no group."""
+    if "WORLD_SIZE" not in os.environ:
+        return resolve_device(args.device), None, 0, False
+    world, n = int(os.environ["WORLD_SIZE"]), dp_extent(dims, names)
+    model = dict(zip(names, dims)).get("model", 1)
+    if world > n:
+        raise SystemExit(f"train: WORLD_SIZE {world} exceeds --mesh "
+                         f"{args.mesh}'s data-parallel extent {n}")
+    if model > 1:
+        raise SystemExit(f"train: --mesh {args.mesh} has a model axis of "
+                         f"{model}; the ranks hold data-parallel vertices "
+                         "only")
+    try:
+        stacked_only({"--zero1": args.zero1, "--recover": args.recover,
+                      "--trace-out": args.trace_out}, world)
+    except ValueError as e:
+        raise SystemExit(f"train: {e}") from None
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+    mine = not dist.is_initialized()
+    if mine:
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    if dist.get_world_size() != world:
+        raise SystemExit(f"train: WORLD_SIZE {world}, but the process "
+                         f"group has {dist.get_world_size()} ranks")
+    return device, dist.group.WORLD, dist.get_rank(), mine
 
 
 def setup(args, cfg=None):
@@ -201,15 +258,16 @@ def setup(args, cfg=None):
             f"{cfg.family} family, whose loss also needs "
             f"{'frames' if cfg.family == 'encdec' else 'patches'} "
             f"(trainable families: {', '.join(TOKEN_FAMILIES)})")
-    device = resolve_device(args.device)
-    api = build(cfg)
     dims, names = parse_mesh(args.mesh)
+    device, group, rank, mine = dist_setup(args, dims, names)
+    api = build(cfg)
     opt = AdamW(cosine_schedule(args.lr, args.warmup, args.steps))
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = api.init(gen, device)
     n = dp_extent(dims, names)
     run = Run(args, device, None, SyntheticLMStream(
-        cfg.vocab, args.seq, args.batch, seed=args.seed))
+        cfg.vocab, args.seq, args.batch, seed=args.seed), rank=rank,
+        owns_group=mine)
     if args.zero1:
         run.zspec = edst_spec_for_mesh(dims, names, engine="striped")
         opt_state = ShardedAdamW(opt).init_for(params, run.zspec, n)
@@ -229,7 +287,8 @@ def setup(args, cfg=None):
         return make_train_step(api, opt, dims, names, mode=args.sync,
                                quantize=args.quantize_grads,
                                engine=args.edst_engine, zero1=args.zero1,
-                               fault_runtime=rt, telemetry=rt is not None)
+                               fault_runtime=rt, telemetry=rt is not None,
+                               group=group)
 
     run.remake_step = remake_step
     run.step_fn = remake_step(runtime)
@@ -351,76 +410,81 @@ def main(argv=None, keep_first_step: bool = False,
                  "so its vertex rows differ by design and the controller "
                  "would read every step's checksum spread as corruption")
     run, params, opt_state = setup(args, cfg)
-    if args.trace_out:
-        write_sync_trace(args, run, params)
-    params, opt_state, start = run.resume(params, opt_state)
-    ctrl = run.controller
-    init = _clone(params) if keep_first_step else None
-    steps_total = tmetrics.counter("edst_train_steps_total",
-                                   "optimizer steps committed, by sync mode")
-    prof = profiler(run.device) if args.profile_dir else nullcontext()
-    t0 = last = time.time()
-    losses, gnorms, secs, first, metrics = [], [], [], None, {}
-    step = saved = start
-    with prof:
-        while step < args.steps:
-            batch = run.batch(step)
-            snapshot = (params, opt_state)
-            t1 = time.time()
-            with torch.profiler.record_function(f"train/step{step}"):
+    try:
+        if args.trace_out:
+            write_sync_trace(args, run, params)
+        params, opt_state, start = run.resume(params, opt_state)
+        ctrl = run.controller
+        init = _clone(params) if keep_first_step else None
+        steps_total = tmetrics.counter(
+            "edst_train_steps_total",
+            "optimizer steps committed, by sync mode")
+        prof = profiler(run.device) if args.profile_dir else nullcontext()
+        t0 = last = time.time()
+        losses, gnorms, secs, first, metrics = [], [], [], None, {}
+        step = saved = start
+        with prof:
+            while step < args.steps:
+                batch = run.batch(step)
+                snapshot = (params, opt_state)
+                t1 = time.time()
+                with torch.profiler.record_function(f"train/step{step}"):
+                    if ctrl is not None:
+                        params, opt_state, metrics = run.step_fn(
+                            params, opt_state, batch, ctrl.schedule_id)
+                    else:
+                        params, opt_state, metrics = run.step_fn(
+                            params, opt_state, batch)
+                    loss = float(metrics["loss"])   # waits for the step
                 if ctrl is not None:
-                    params, opt_state, metrics = run.step_fn(
-                        params, opt_state, batch, ctrl.schedule_id)
-                else:
-                    params, opt_state, metrics = run.step_fn(
-                        params, opt_state, batch)
-                loss = float(metrics["loss"])   # waits for the step
-            if ctrl is not None:
-                verdict = _recover_tick(run, step, t1, metrics)
-                if verdict is not None:
-                    # the step's new tensors are dropped; the snapshot's
-                    # were never written to
-                    params, opt_state = snapshot
-                    if verdict == "stop":
-                        break
-                    continue
-            losses.append(loss)
-            steps_total.inc(mode=args.sync)
-            gnorms.append(float(metrics["grad_norm"]))
-            now = time.time()
-            secs.append(now - last)
-            last = now
-            if keep_first_step and first is None:
-                first = _clone(params)
-            if step % args.log_every == 0 or step == args.steps - 1:
-                print(f"[train] step {step:5d} loss {losses[-1]:.4f} "
-                      f"gnorm {gnorms[-1]:.3f} "
-                      f"lr {float(metrics['lr']):.2e} "
-                      f"({time.time() - t0:.1f}s)", flush=True)
-            step += 1
-            if args.ckpt_dir and step % args.ckpt_every == 0:
-                run.save(step, params, opt_state)
-                saved = step
-    trace = None
-    if args.profile_dir:
-        Path(args.profile_dir).mkdir(parents=True, exist_ok=True)
-        trace = str(Path(args.profile_dir) / "trace.json")
-        prof.export_chrome_trace(trace)
-        print(f"[train] profiler trace -> {trace}")
-    if args.metrics_out:
-        tmetrics.REGISTRY.dump_json(args.metrics_out)
-        print(f"[train] metrics -> {args.metrics_out}")
-    if ctrl is not None and ctrl.journal:
-        print(f"[train] recovery journal ({len(ctrl.journal)} entries):")
-        for row in ctrl.journal_rows():
-            print(f"[train]   {json.dumps(row)}")
-    if args.ckpt_dir and saved != step:
-        run.save(step, params, opt_state)
-    if losses:
-        print(f"[train] done: first loss {losses[0]:.4f} -> last "
-              f"{losses[-1]:.4f}")
-    return TrainResult(losses, params, metrics, gnorms, secs, init, first,
-                       trace, opt_state, start, ctrl, run.monitor)
+                    verdict = _recover_tick(run, step, t1, metrics)
+                    if verdict is not None:
+                        # the step's new tensors are dropped; the snapshot's
+                        # were never written to
+                        params, opt_state = snapshot
+                        if verdict == "stop":
+                            break
+                        continue
+                losses.append(loss)
+                steps_total.inc(mode=args.sync)
+                gnorms.append(float(metrics["grad_norm"]))
+                now = time.time()
+                secs.append(now - last)
+                last = now
+                if keep_first_step and first is None:
+                    first = _clone(params)
+                if step % args.log_every == 0 or step == args.steps - 1:
+                    run.log(f"[train] step {step:5d} loss {losses[-1]:.4f} "
+                            f"gnorm {gnorms[-1]:.3f} "
+                            f"lr {float(metrics['lr']):.2e} "
+                            f"({time.time() - t0:.1f}s)")
+                step += 1
+                if args.ckpt_dir and step % args.ckpt_every == 0:
+                    run.save(step, params, opt_state)
+                    saved = step
+        trace = None
+        if args.profile_dir and run.rank == 0:
+            Path(args.profile_dir).mkdir(parents=True, exist_ok=True)
+            trace = str(Path(args.profile_dir) / "trace.json")
+            prof.export_chrome_trace(trace)
+            print(f"[train] profiler trace -> {trace}")
+        if args.metrics_out and run.rank == 0:
+            tmetrics.REGISTRY.dump_json(args.metrics_out)
+            print(f"[train] metrics -> {args.metrics_out}")
+        if ctrl is not None and ctrl.journal:
+            print(f"[train] recovery journal ({len(ctrl.journal)} entries):")
+            for row in ctrl.journal_rows():
+                print(f"[train]   {json.dumps(row)}")
+        if args.ckpt_dir and saved != step:
+            run.save(step, params, opt_state)
+        if losses:
+            run.log(f"[train] done: first loss {losses[0]:.4f} -> last "
+                    f"{losses[-1]:.4f}")
+        return TrainResult(losses, params, metrics, gnorms, secs, init, first,
+                           trace, opt_state, start, ctrl, run.monitor)
+    finally:
+        if run.owns_group:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -49,7 +49,7 @@ from ..core.collectives import (CostModel, PipelinedAllreduceSpec,
                                 StripedCollectiveSpec, striped_tables,
                                 wave_wire_bytes)
 from ..core.device import resolve_device
-from ..dist.fabric import StackedFabric
+from ..dist.fabric import StackedFabric, stacked_only
 from ..dist.striped import _rows_in, _run_wave
 from ..dist.tree_allreduce import (_apply_wave, _row_sizes, _rows_of,
                                    _rows_out, _select_payload)
@@ -149,7 +149,9 @@ def timed_waves(spec, nbytes: int = DEFAULT_NBYTES,
     each the best of ``iters`` passes after one warm-up pass, run wave by
     wave on a stacked fabric on ``device`` (see the module docstring).
     The payload is the reference's: ``arange(n * elems) * 1e-4`` in f32,
-    ``elems = ceil(nbytes / 4)`` a vertex."""
+    ``elems = ceil(nbytes / 4)`` a vertex.  Stacked only: it raises under
+    a ``torch.distributed`` group of more than one rank."""
+    stacked_only({"the wave timer": True})
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
     elems = max(1, -(-int(nbytes) // 4))
