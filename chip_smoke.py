@@ -42,7 +42,7 @@ probe fed to the controller until it flips, a step on the flipped
 entry held to psum_dp); then closes the fault loop (every spec of these
 paths proven by the static verifier; a seeded chaos trace of flap, kill,
 burst, straggler, corruption and node loss driving training on the
-torus, each recovery's first step held to psum_dp, the node loss
+torus, smollm-135m at 10 of its 30 layers and full width, each recovery's first step held to psum_dp, the node loss
 checkpointed and rescaled onto the 2x4 torus through the elastic entry
 point, and training resumed there, f32 and int8; the Roskind-Tarjan
 rescale onto all 15 survivors summing a (15, 134,515,008) payload; the
@@ -52,11 +52,14 @@ and at the full gradient beside the CostModel's prediction, the fitted
 ``cuda`` row, S = 1, 2, 4, 8 against ``segments="auto"``, a measured
 trace and a ``--trace-out`` trace validated, no wave range without a
 profiler, and the ranges' cost under one); last, the process-group
-fabric: the torus allreduce (pipelined and striped, f32 and int8) and the
-edst training over a world-1 NCCL group, bit for bit with the stacked
-fabric, GPipe over smollm-135m's layers on both fabrics, and the reduced
-training over 4 gloo ranks on the host (multi-rank NCCL where the
-machine has two or more cards).  Beside
+fabric: the torus allreduce (pipelined and striped, f32 and int8), the
+edst training (its warm step timed stacked, NCCL, NCCL, stacked), ZeRO-1
+(f32 and int8), the fault runtime's flip with reshard_owned, the sharded
+checkpoint resumed, the recovery loop and the wave timer over a world-1
+NCCL group, each bit for bit with the stacked fabric's run, GPipe over
+smollm-135m's layers on both fabrics, and the reduced training (edst and
+zero1) and a masked probe's flip over 4 gloo ranks on the host
+(multi-rank NCCL where the machine has two or more cards).  Beside
 WKV6's row it logs where the kernel's time goes ("wkv6 parts": copies
 with one part of its chunk loop compiled out, and mma.sync TF32 alone).
 Every failed check raises, so the exit code is non-zero and no result
@@ -67,7 +70,7 @@ line is printed.  The last line is
 preceded by one JSON line ``{"kernels": [...]}`` (launches summed over
 the runs of each kernel's path, an allreduce, training, serving or the
 wave-by-wave timer, each run counted from 0 just before it and read just
-after it; times from
+after it, and by phase in ``launches_by_phase``; times from
 CUDA events in
 this run, each the median of 5 rounds of about 20 ms of back-to-back
 calls) and the card's name and power limit from nvidia-smi.
@@ -1556,6 +1559,9 @@ FABRIC_PEAK_SLACK = 64 << 20
 GLOO_TRAIN = ["--reduced", "--steps", "2", "--batch", "16", "--seq", "16",
               "--mesh", "4,4,1", "--sync", "edst", "--device", "cpu",
               "--log-every", "1"]
+GLOO_ZERO1 = ["--reduced", "--steps", "2", "--batch", "16", "--seq", "16",
+              "--mesh", "4,4,1", "--zero1", "--device", "cpu",
+              "--log-every", "1"]
 PIPE_STAGES, PIPE_MICRO, PIPE_MB, PIPE_SEQ = 6, 8, 4, 256
 PIPE_TIMED = ("sequential", "stacked", "nccl-1", "nccl-1", "stacked")
 RANK_JOIN_S = 300
@@ -1609,7 +1615,59 @@ def gloo_train_rank(rank, world, init, out_dir):
                             world_size=world)
     try:
         res = train.main(GLOO_TRAIN)
-        torch.save({"losses": res.losses, "params": flat_of(res.params)},
+        out = {"losses": res.losses, "params": flat_of(res.params)}
+        res = train.main(GLOO_ZERO1)
+        out["zero1"] = {"losses": res.losses, "params": flat_of(res.params),
+                        "mu": res.opt_state.mu, "nu": res.opt_state.nu}
+        out["probe"] = masked_probe_flip(rank)
+        torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def masked_probe_flip(rank=None):
+    """The probe of the 4x4 torus's fault runtime with a link of tree 0
+    masked, fed to a recovery controller until it flips: ``(tick,
+    schedule id, journal rows)``.  Over gloo ranks (``rank`` given) the
+    mask is applied on the rank that receives over the link only; the
+    probe's ``all_reduce`` tells every other rank, and every rank must
+    flip alike.  Stacked when ``rank`` is None."""
+    from repro_torch.dist.fabric import ProcessGroupFabric, StackedFabric
+    from repro_torch.dist.health import HealthMonitor
+    from repro_torch.dist.recovery import RecoveryController
+    from repro_torch.dist.steps import fault_runtime_for_mesh
+    rt = fault_runtime_for_mesh(TORUS_MESH, MESH_NAMES)
+    fabric = StackedFabric(N_VERT, "cpu") if rank is None \
+        else ProcessGroupFabric(N_VERT, "cpu")
+    mon = HealthMonitor(fabric, rt)
+    ctrl = RecoveryController(rt, clock=mon.clock, agree=fabric.all_true)
+    link = sorted(rt.entries[0].sched.trees[0].tree)[0]
+    mask = [0.0 if lk == link else 1.0 for lk in mon.links] \
+        if fabric.owns(link[1]) else None
+    for tick in range(4):
+        if ctrl.observe(mon.check(tick, fault_mask=mask)).action == "flip":
+            break
+    return tick, ctrl.schedule_id, ctrl.journal_rows()
+
+
+def zero1_rank(rank, world, init, out_dir):
+    """One NCCL rank on ``cuda:rank`` of a multi-card zero1 step:
+    ``train.main`` at full width, 1 step, each rank holding its block's
+    moments."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import train
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    torchrun_env(rank, world)
+    dist.init_process_group("nccl", init_method=init, rank=rank,
+                            world_size=world, device_id=dev)
+    try:
+        res = train.main(FABRIC_ZERO1 + ["--zero1", "--steps", "1"],
+                         cfg=fault_loop_cfg())
+        torch.save({"losses": res.losses, "grad_norms": res.grad_norms,
+                    "params": flat_of(res.params).cpu(),
+                    "rows": tuple(res.opt_state.mu.shape)},
                    Path(out_dir) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -1688,6 +1746,271 @@ def pipeline_stages(dev):
     return stage_fn, stage_params, x, sequential
 
 
+FABRIC_ZERO1 = ["--arch", "smollm-135m", "--batch", "32", "--seq", "256",
+                "--log-every", "1", "--device", "cuda", "--mesh", "4,4,1"]
+FABRIC_WAVE_ITERS = 2
+
+
+def same_ckpt_files(a, b):
+    """Whether two sharded checkpoint steps hold the same files, each array
+    equal, the manifests equal but for the shards' CRC32 (each npz holds
+    its write time): ``(equal, files)``."""
+    import numpy as np
+    names = sorted(p.name for p in a.iterdir())
+    if names != sorted(p.name for p in b.iterdir()):
+        return False, names
+    for name in names:
+        if name == "manifest.json":
+            ma, mb = (json.loads((d / name).read_text()) for d in (a, b))
+            if set(ma["sharded"].pop("checksums")) != \
+                    set(mb["sharded"].pop("checksums")) or ma != mb:
+                return False, names
+            continue
+        with np.load(a / name) as x, np.load(b / name) as y:
+            if sorted(x.files) != sorted(y.files) or not all(
+                    np.array_equal(x[k], y[k]) for k in x.files):
+                return False, names
+    return True, names
+
+
+def abba_turns(argv, abba):
+    """The second half of the ABBA timing of the warm (second) edst
+    training step: a world-1 NCCL run, then a stacked one, after the
+    stacked and NCCL runs whose warm steps ``abba`` holds; logs all four
+    and the pair means."""
+    import os
+    import torch
+    from repro_torch.launch import train
+    torchrun_env(0, 1)
+    try:
+        abba["nccl-1"].append(train.main(argv).step_seconds[1])
+    finally:
+        for key in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
+            os.environ.pop(key)
+    torch.cuda.empty_cache()
+    abba["stacked"].append(train.main(argv).step_seconds[1])
+    torch.cuda.empty_cache()
+    a, b = abba["stacked"], abba["nccl-1"]
+    log(f"fabric nccl-1 train edst torus4x4 warm s/step in the order "
+        f"stacked, NCCL, NCCL, stacked: {a[0]!r}, {b[0]!r}, {b[1]!r}, "
+        f"{a[1]!r}; pair means stacked {sum(a) / 2!r}, world-1 NCCL "
+        f"{sum(b) / 2!r} ({sum(b) / sum(a):.4f}x)")
+
+
+def fabric_zero1(dev, per_run):
+    """ZeRO-1, the fault runtime, the sharded checkpoint, the recovery loop
+    and the wave timer on the world-1 NCCL group already initialised, at
+    full width, each held to ``phase_zero1``'s stacked run (``ZERO1_REF``)
+    bit for bit; every run counted into ``per_run``."""
+    import os
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.dist.fabric import ProcessGroupFabric
+    from repro_torch.dist.steps import (fault_runtime_for_mesh,
+                                        make_train_step)
+    from repro_torch.launch import train
+    from repro_torch.models.api import build
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.optim.sharded import ShardedOptState
+    from repro_torch.telemetry.timing import timed_waves
+    group = dist.group.WORLD
+    cfg = fault_loop_cfg()
+    api = build(cfg)
+    stream = SyntheticLMStream(cfg.vocab, 256, 32, seed=0)
+
+    def batch(step):
+        return {"tokens": torch.as_tensor(stream.batch(step),
+                                          dtype=torch.long, device=dev)}
+
+    def run(tag, extra, keep=False):
+        torchrun_env(0, 1)
+        try:
+            reset_all()
+            t0 = time.perf_counter()
+            res = train.main(FABRIC_ZERO1 + extra, keep_first_step=keep,
+                             cfg=cfg)
+            torch.cuda.synchronize()
+            per_run[tag] = counts()
+        finally:
+            for key in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
+                os.environ.pop(key)
+        log(f"{tag}: losses {res.losses}, grad norms {res.grad_norms}, "
+            f"s/step {res.step_seconds}, {time.perf_counter() - t0!r} s in "
+            f"all, launches {per_run[tag]}")
+        return res
+
+    def same(res, ref, what=("params", "mu", "nu")):
+        got = {"params": lambda: flat_of(res.params).cpu(),
+               "mu": lambda: res.opt_state.mu.cpu(),
+               "nu": lambda: res.opt_state.nu.cpu()}
+        return res.losses == ref["losses"] and \
+            res.grad_norms == ref["grad_norms"] and \
+            all(torch.equal(got[k](), ref[k]) for k in what)
+
+    # 1. --zero1, 3 steps, and its peak over what it found allocated
+    ref = ZERO1_REF["run1"]
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res = run("fabric nccl-1 zero1 torus4x4", ["--zero1", "--steps", "3"],
+              keep=True)
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    equal = same(res, ref)
+    log(f"fabric nccl-1 zero1: losses, grad norms, parameters, mu and nu "
+        f"equal to phase_zero1's stacked run 1 {equal}; moments "
+        f"{tuple(res.opt_state.mu.shape)} on the rank; peak over the "
+        f"run's start {peak / 1e9:.4f} GB (stacked {ref['peak'] / 1e9:.4f}"
+        f" GB)")
+    assert equal, "world-1 zero1 differs from the stacked run"
+    assert peak <= ref["peak"] + FABRIC_PEAK_SLACK, (peak, ref["peak"])
+    assert per_run["fabric nccl-1 zero1 torus4x4"]["tree_combine"] > 0
+    del res
+    torch.cuda.empty_cache()
+
+    # 2. --zero1 --quantize-grads, 2 steps
+    tag = "fabric nccl-1 zero1+q8 torus4x4"
+    res = run(tag, ["--zero1", "--quantize-grads", "--steps", "2"])
+    equal = same(res, ZERO1_REF["run2"])
+    log(f"fabric nccl-1 zero1+q8: equal to the stacked run 2 {equal}")
+    assert equal, "world-1 zero1+q8 differs from the stacked run"
+    c = per_run[tag]
+    assert c["q8_pack_rows"] > 0 and c["q8_unpack_rows"] > 0, c
+    del res
+    torch.cuda.empty_cache()
+
+    # 3. the striped fault runtime from Python: the first flip of run 3
+    ref = ZERO1_REF["run3"]
+    rt = fault_runtime_for_mesh(TORUS_MESH, MESH_NAMES, engine="striped")
+    opt = AdamW(cosine_schedule(3e-4, 20, 100))
+    zstep = make_train_step(api, opt, TORUS_MESH, MESH_NAMES, zero1=True,
+                            fault_runtime=rt, telemetry=True, group=group)
+    fabric = ProcessGroupFabric(N_VERT, dev)
+    sid = ref["sid"]
+    params = to_dev(ref["params"], dev)
+    mu0, nu0 = ref["mu"].to(dev), ref["nu"].to(dev)
+    t0 = time.perf_counter()
+    mu = rt.reshard_owned(mu0, 0, sid, N_PARAMS, fabric)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    back = rt.reshard_owned(mu, sid, 0, N_PARAMS, fabric)
+    there_back = torch.equal(back, mu0)
+    del back, mu0
+    t0 = time.perf_counter()
+    nu = rt.reshard_owned(nu0, 0, sid, N_PARAMS, fabric)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    del nu0
+    tag = "fabric nccl-1 zero1 fault runtime step"
+    reset_all()
+    new_params, new_state, met = zstep(
+        params, ShardedOptState(ref["opt_step"], mu, nu), batch(ref["step"]),
+        sid)
+    torch.cuda.synchronize()
+    per_run[tag] = counts()
+    out = ref["out"]
+    equal = float(met["loss"]) == out["loss"] and \
+        float(met["grad_norm"]) == out["grad_norm"] and \
+        torch.equal(flat_of(new_params).cpu(), out["params"]) and \
+        torch.equal(new_state.mu.cpu(), out["mu"]) and \
+        torch.equal(new_state.nu.cpu(), out["nu"])
+    log(f"fabric nccl-1 flip 0 -> {sid} ({rt.entries[sid].name}): "
+        f"reshard_owned over the group {t_first!r} s (first call, the plan "
+        f"built), {t_warm!r} s (nu); there and back equal {there_back}; the "
+        f"step on it equal to the stacked run 3's step {ref['step'] + 1} "
+        f"{equal}, replicas equal {met['ag_replicas_equal']}, launches "
+        f"{per_run[tag]}")
+    assert there_back and equal and met["ag_replicas_equal"], tag
+    del params, mu, nu, new_params, new_state, met
+    torch.cuda.empty_cache()
+
+    # 4. --zero1 --ckpt-dir: 2 steps, resumed to 3; the files of step 2
+    # (saved once, at step 2: the stacked run saved every step)
+    ck = ROOT / "build" / "ckpt_fabric"
+    shutil.rmtree(ck, ignore_errors=True)
+    try:
+        run("fabric nccl-1 zero1 torus4x4 ckpt",
+            ["--zero1", "--steps", "2", "--ckpt-dir", str(ck),
+             "--ckpt-every", "2"])
+        res = run("fabric nccl-1 zero1 torus4x4 resumed",
+                  ["--zero1", "--steps", "3", "--ckpt-dir", str(ck)])
+        ref = ZERO1_REF["run1"]
+        equal = res.start_step == 2 and res.losses == ref["losses"][2:] and \
+            torch.equal(flat_of(res.params).cpu(), ref["params"]) and \
+            torch.equal(res.opt_state.mu.cpu(), ref["mu"]) and \
+            torch.equal(res.opt_state.nu.cpu(), ref["nu"])
+        del res
+        files, names = same_ckpt_files(ck / "step_00000002",
+                                       ZERO1_REF["ckpt"] / "step_00000002")
+        log(f"fabric nccl-1 zero1 resumed at step 2 to 3: equal to the "
+            f"uninterrupted stacked run {equal}; step 2's {len(names)} files "
+            f"equal to the stacked run 4's, array for array {files}")
+        assert equal and files, "world-1 checkpoint differs"
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+        shutil.rmtree(ZERO1_REF.pop("ckpt"), ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # 5. --recover, then a masked link until the flip, and a step on it
+    ref = ZERO1_REF["run5"]
+    rec = run("fabric nccl-1 edst torus4x4 recover",
+              ["--sync", "edst", "--recover", "--steps", "2"])
+    equal = same(rec, ref, ("params",))
+    ctrl, mon = rec.controller, rec.monitor
+    s_, d_ = sorted(ctrl.runtime.entries[0].sched.trees[0].tree)[0]
+    mask = [0.0 if link == (s_, d_) else 1.0 for link in mon.links]
+    for tick in range(2, 6):
+        dec = ctrl.observe(mon.check(tick, fault_mask=mask))
+        if dec.action == "flip":
+            break
+    rows = [{k: v for k, v in r.items() if k != "mttr_s"}
+            for r in ctrl.journal_rows()]
+    same_journal = tick == ref["flip_tick"] and rows == [
+        {k: v for k, v in r.items() if k != "mttr_s"}
+        for r in ref["journal"]]
+    opt2 = AdamW(cosine_schedule(3e-4, 20, 2))
+    step_fn = make_train_step(api, opt2, TORUS_MESH, MESH_NAMES, mode="edst",
+                              fault_runtime=ctrl.runtime, telemetry=True,
+                              group=group)
+    tag = "fabric nccl-1 edst torus4x4 recover flipped"
+    reset_all()
+    new_params, _, met = step_fn(rec.params, rec.opt_state, batch(2),
+                                 ctrl.schedule_id)
+    torch.cuda.synchronize()
+    per_run[tag] = counts()
+    flipped = ref["flipped"]
+    step_equal = float(met["loss"]) == flipped["loss"] and \
+        float(met["grad_norm"]) == flipped["grad_norm"] and \
+        torch.equal(flat_of(new_params).cpu(), flipped["params"])
+    log(f"fabric nccl-1 recover: 2 steps equal to the stacked run 5 "
+        f"{equal}; the masked link {(s_, d_)} flipped at tick {tick} to "
+        f"{ctrl.runtime.entry.name}, journal as stacked {same_journal}; the "
+        f"step on it equal to the stacked one {step_equal}, sync_dev "
+        f"{met['sync_dev']!r}, launches {per_run[tag]}")
+    assert equal and same_journal and step_equal, "world-1 recover differs"
+    assert dec.action == "flip" and met["sync_dev"] == 0.0
+    _held_to_psum(f"fabric nccl-1 recover step 3 ({ctrl.runtime.entry.name})",
+                  rec.params, rec.opt_state, batch(2), new_params,
+                  met["grad_norm"], opt2)
+    del rec, new_params, ctrl, mon, step_fn
+    torch.cuda.empty_cache()
+
+    # 6. the wave timer: the torus's pipelined program at the full gradient
+    spec = engine_specs((4, 4))["pipelined"]
+    reset_all()
+    got = timed_waves(spec, 4 * N_PARAMS, FABRIC_WAVE_ITERS, device=dev,
+                      group=group)
+    per_run["fabric nccl-1 timed_waves"] = counts()
+    want = timed_waves(spec, 4 * N_PARAMS, FABRIC_WAVE_ITERS, device=dev)
+    torch.cuda.empty_cache()
+    pairs = [(a * 1e3, b * 1e3) for a, b in zip(got[0], want[0])]
+    log(f"fabric nccl-1 timed_waves torus4x4 pipelined {4 * N_PARAMS} B: "
+        f"{len(got[0])} waves over the group, {len(want[0])} stacked; "
+        f"device ms (group, stacked): {pairs}; totals {sum(got[0])!r} s, {sum(want[0])!r} s; launches "
+        f"{per_run['fabric nccl-1 timed_waves']}")
+    assert len(got[0]) == len(want[0]) == len(spec.waves)
+    assert all(t > 0 for t in got[0])
+
+
 def phase_fabric(dev):
     """The process-group fabric on the card: a world-1 NCCL group (rank 0
     of 1, a ``FileStore`` in a temporary directory) carries the full-width
@@ -1700,11 +2023,24 @@ def phase_fabric(dev):
     and
     ``pipeline_apply`` of smollm-135m's layer body (6 stages of 5 layers,
     8 microbatches of 4 x 256, f32) on both fabrics, equal bit for bit to
-    the 30 layers in order.  Then 4 gloo ranks on the host train the
-    reduced smollm-135m 2 edst steps on the torus, equal bit for bit to a
-    stacked host run, and, with two or more cards, min(count, 4) NCCL
-    ranks run the full-width allreduce against the stacked engine.  Returns
-    ``{run: {kernel: launches}}``."""
+    the 30 layers in order.  The edst run's warm step is timed in the
+    order stacked, NCCL, NCCL, stacked.  On the same group, at full width
+    (``fabric_zero1``): ``--zero1`` 3 steps and ``--zero1
+    --quantize-grads`` 2, the striped fault runtime's first flip of
+    ``phase_zero1``'s run 3 (``reshard_owned`` over the group there and
+    back, and the step on the degraded class), ``--zero1 --ckpt-dir`` 2
+    steps resumed to 3 (its files equal the stacked run's), ``--recover``
+    2 steps, a masked probe until the flip and a step on it, each bit for
+    bit with ``phase_zero1``'s stacked run (``ZERO1_REF``), the zero1
+    peak within ``FABRIC_PEAK_SLACK`` of the stacked one's; and
+    ``timed_waves`` of the pipelined program at the full gradient over the
+    group beside the stacked fabric.  Then 4 gloo ranks on the host train
+    the reduced smollm-135m 2 edst steps and 2 zero1 steps on the torus,
+    equal bit for bit to stacked host runs, and a probe masked on one rank
+    flips every rank alike; with two or more cards, min(count, 4) NCCL
+    ranks run the full-width allreduce against the stacked engine and one
+    zero1 step against ``phase_zero1``'s.  Returns ``{run: {kernel:
+    launches}}``."""
     import os
     import tempfile
     import torch
@@ -1789,6 +2125,9 @@ def phase_fabric(dev):
                 finally:
                     for key in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
                         os.environ.pop(key)
+                if sync == "edst":   # ABBA: stacked, NCCL, NCCL, stacked
+                    abba = {"stacked": [ref_secs[1]],
+                            "nccl-1": [res.step_seconds[1]]}
                 equal = res.losses == ref_losses and torch.equal(
                     flat_of(res.params).cpu(), ref_params)
                 log(f"{tag}: losses {res.losses} (stacked {ref_losses}), "
@@ -1803,6 +2142,15 @@ def phase_fabric(dev):
                     assert c["tree_combine"] > 0, c
                 del res, ref_params
                 torch.cuda.empty_cache()
+                if sync == "edst":
+                    abba_turns(argv, abba)
+
+            # ZeRO-1, the fault runtime, checkpoints, the recovery loop and
+            # the wave timer over the group, held to phase_zero1's runs
+            t0 = time.perf_counter()
+            fabric_zero1(dev, per_run)
+            log(f"fabric nccl-1 zero1/fault/ckpt/recover/timer: "
+                f"{time.perf_counter() - t0!r} s")
 
             # GPipe over smollm-135m's layers on both fabrics
             with torch.no_grad():
@@ -1850,6 +2198,8 @@ def phase_fabric(dev):
     torch.set_num_threads(1)
     try:
         ref = train.main(GLOO_TRAIN)
+        zref = train.main(GLOO_ZERO1)
+        probe = masked_probe_flip()
     finally:
         torch.set_num_threads(threads)
     ref_params = flat_of(ref.params)
@@ -1859,8 +2209,31 @@ def phase_fabric(dev):
     log(f"fabric gloo CPU check ({GLOO_RANKS} ranks on the host, reduced "
         f"smollm-135m, edst, 4x4 torus, 4 vertices a rank, 2 steps): "
         f"losses {got[0]['losses']} (stacked {ref.losses}), every rank "
-        f"equal to the stacked host run {equal}, {t_gloo!r} s")
+        f"equal to the stacked host run {equal}, {t_gloo!r} s in all")
     assert all(equal), equal
+    zparams = flat_of(zref.params)
+    zequal = [r["zero1"]["losses"] == zref.losses
+              and torch.equal(r["zero1"]["params"], zparams)
+              and torch.equal(r["zero1"]["mu"], zref.opt_state.mu[4 * i:
+                                                                4 * i + 4])
+              and torch.equal(r["zero1"]["nu"], zref.opt_state.nu[4 * i:
+                                                                4 * i + 4])
+              for i, r in enumerate(got)]
+    log(f"fabric gloo zero1 (2 steps, each rank its 4 vertices' moments): "
+        f"losses {got[0]['zero1']['losses']} (stacked {zref.losses}), every "
+        f"rank equal to the stacked host run {zequal}")
+    assert all(zequal), zequal
+
+    def strip(rows):
+        return [{k: v for k, v in r.items() if k != "mttr_s"} for r in rows]
+    flips = [r["probe"] for r in got]
+    alike = all(f == flips[0] for f in flips) and \
+        flips[0][:2] == probe[:2] and strip(flips[0][2]) == strip(probe[2])
+    log(f"fabric gloo probe: a link of tree 0 masked on its receiving rank "
+        f"only; every rank flips at tick {[f[0] for f in flips]} to schedule "
+        f"{[f[1] for f in flips]}, journals identical and as stacked "
+        f"(tick {probe[0]}, schedule {probe[1]}): {alike}")
+    assert alike and probe[1] != 0, (flips, probe)
 
     cards = torch.cuda.device_count()
     if cards >= 2:
@@ -1871,11 +2244,20 @@ def phase_fabric(dev):
             f"stacked engine {[r['equal'] for r in got]}, s "
             f"{[r['seconds'] for r in got]}")
         assert all(r["equal"] for r in got)
+        got = spawn_ranks(zero1_rank, world, ())
+        ref = ZERO1_REF["run1"]
+        equal = [r["losses"] == ref["losses"][:1]
+                 and r["grad_norms"] == ref["grad_norms"][:1]
+                 and torch.equal(r["params"], ref["first"]) for r in got]
+        log(f"fabric nccl-{world}: zero1 1 step at full width over {world} "
+            f"cards, moment rows {[r['rows'] for r in got]}, equal to the "
+            f"stacked run 1's first step {equal}")
+        assert all(equal)
     else:
-        log(f"fabric multi-rank NCCL: not run: {cards} CUDA device here, "
-            "and NCCL refuses two ranks of one communicator on one GPU "
-            "(\"Duplicate GPU detected\"), so the multi-rank exchange is "
-            "held over gloo on the host above")
+        log(f"fabric multi-rank NCCL (the allreduce and a zero1 step): not "
+            f"run: {cards} CUDA device here, and NCCL refuses two ranks of "
+            "one communicator on one GPU (\"Duplicate GPU detected\"), so "
+            "the multi-rank exchange is held over gloo on the host above")
     log(f"fabric phase: {time.perf_counter() - t_phase!r} s")
     return per_run
 
@@ -2033,6 +2415,18 @@ def fault_loop_cfg():
     return dataclasses.replace(configs.get("smollm-135m"), remat=False)
 
 
+# phase_elastic's depth: smollm-135m at full width, 15 of its 30 layers.
+# At all 30 the smoke read 1160.7 s against the 1200 s limit (PERF.md,
+# PR 26); every check of the phase is kept
+ELASTIC_LAYERS = 15
+
+
+def elastic_cfg():
+    """``fault_loop_cfg`` cut to ``ELASTIC_LAYERS`` layers."""
+    import dataclasses
+    return dataclasses.replace(fault_loop_cfg(), n_layers=ELASTIC_LAYERS)
+
+
 def _dense_state(step, mu, nu, emap, params):
     """The dense ``OptState`` holding the sharded moments ``mu`` / ``nu``
     laid out on the element map ``emap`` (numpy, -1 = padding)."""
@@ -2052,17 +2446,18 @@ def _dense_state(step, mu, nu, emap, params):
 
 
 def _held_to_psum(tag, params, dense_state, batch, new_params, grad_norm,
-                  opt, mesh=TORUS_MESH):
+                  opt, mesh=TORUS_MESH, cfg=None):
     """Hold one step (``params`` -> ``new_params``, its pre-clip grad norm
     ``grad_norm``) to a psum_dp step on ``mesh`` from the same params and
     optimizer state: the move within 1e-5 of psum_dp's relative to its
     size, the grad norm within 1e-5 (both are sums over the vertices in
-    another order).  Returns (move, grad norm) relative differences."""
+    another order).  ``cfg`` is the model's (``fault_loop_cfg()`` when
+    None).  Returns (move, grad norm) relative differences."""
     import torch
     from repro_torch.dist.steps import make_train_step
     from repro_torch.models.api import build
-    step = make_train_step(build(fault_loop_cfg()), opt, mesh, MESH_NAMES,
-                           mode="psum_dp")
+    step = make_train_step(build(cfg or fault_loop_cfg()), opt, mesh,
+                           MESH_NAMES, mode="psum_dp")
     ref, _, met = step(params, dense_state, batch)
     p0 = flat_of(params)
     d_ref, d_got = flat_of(ref) - p0, flat_of(new_params) - p0
@@ -2078,6 +2473,24 @@ def _held_to_psum(tag, params, dense_state, batch, new_params, grad_norm,
     assert rel <= 1e-5, (tag, rel)
     assert gn_rel <= 1e-5, (tag, gn_rel)
     return rel, gn_rel
+
+
+# phase_zero1's stacked results on the host, the references phase_fabric
+# holds its world-1 NCCL runs to (so that no stacked run is repeated)
+ZERO1_REF: dict = {}
+
+
+def to_host(tree):
+    """A tree of tensors copied to the host (a dense OptState's trees too)."""
+    if isinstance(tree, dict):
+        return {k: to_host(v) for k, v in tree.items()}
+    return tree.detach().cpu()
+
+
+def to_dev(tree, dev):
+    if isinstance(tree, dict):
+        return {k: to_dev(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
 
 
 def phase_zero1(dev):
@@ -2163,7 +2576,18 @@ def phase_zero1(dev):
     # striped engine's steps before and after it, for the warm step times
     striped = ["--sync", "edst", "--edst-engine", "striped", "--steps", "2"]
     before = run("edst striped torus4x4 (before zero1)", striped)
+    # run 1's own peak over what it found allocated (phase_fabric's world-1
+    # run is held to it); the phase's peak so far is kept aside
+    phase_peak = torch.cuda.max_memory_allocated()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     z1 = run("zero1 torus4x4", ["--zero1", "--steps", "3"], keep=True)
+    ZERO1_REF["run1"] = {
+        "losses": z1.losses, "grad_norms": z1.grad_norms,
+        "peak": torch.cuda.max_memory_allocated() - base_mem,
+        "params": flat_of(z1.params).cpu(),
+        "first": flat_of(z1.first_step_params).cpu(),
+        "mu": z1.opt_state.mu.cpu(), "nu": z1.opt_state.nu.cpu()}
     after = run("edst striped torus4x4 (after zero1)", striped)
     warm = {"striped before": before.step_seconds[1:],
             "zero1": z1.step_seconds[1:],
@@ -2181,6 +2605,10 @@ def phase_zero1(dev):
     # 2. the int8 gradient wire
     q = run("zero1+q8 torus4x4", ["--zero1", "--quantize-grads",
                                   "--steps", "2"])
+    ZERO1_REF["run2"] = {"losses": q.losses, "grad_norms": q.grad_norms,
+                         "params": flat_of(q.params).cpu(),
+                         "mu": q.opt_state.mu.cpu(),
+                         "nu": q.opt_state.nu.cpu()}
     c = per_run["zero1+q8 torus4x4"]
     assert c["q8_pack_rows"] > 0 and c["q8_unpack_rows"] > 0, c
     rows_identical("zero1+q8 torus4x4 rows check", q, quantize=True)
@@ -2211,6 +2639,11 @@ def phase_zero1(dev):
         for i, sid in enumerate(schedule):
             if i and sid != schedule[i - 1]:
                 frm = schedule[i - 1]
+                if "run3" not in ZERO1_REF:     # the first flip's input
+                    ZERO1_REF["run3"] = {
+                        "step": i, "sid": sid, "params": to_host(params),
+                        "opt_step": state.step, "mu": state.mu.cpu(),
+                        "nu": state.nu.cpu()}
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 mu = rt.reshard_owned(state.mu, frm, sid, N_PARAMS)
@@ -2244,6 +2677,13 @@ def phase_zero1(dev):
                           f"({rt.entries[sid].name})", params, dense,
                           batch(i), new_params, met["grad_norm"], opt)
             del dense
+            ref3 = ZERO1_REF.get("run3")
+            if ref3 is not None and ref3["step"] == i:
+                ref3["out"] = {"loss": float(met["loss"]),
+                               "grad_norm": float(met["grad_norm"]),
+                               "params": flat_of(new_params).cpu(),
+                               "mu": new_state.mu.cpu(),
+                               "nu": new_state.nu.cpu()}
             params, state = new_params, new_state
             seen[sid] = True
             if bindings is not None:
@@ -2289,9 +2729,11 @@ def phase_zero1(dev):
     del grads, params, state, new_params, new_state
     torch.cuda.empty_cache()
 
-    # 4. checkpoints: 2 steps saved every step, resumed to 3
+    # 4. checkpoints: 2 steps saved every step, resumed to 3 (the directory
+    # stays for phase_fabric, which compares its own files with it)
     ck = ROOT / "build" / "ckpt_smoke"
     shutil.rmtree(ck, ignore_errors=True)
+    kept = False
     try:
         run("zero1 torus4x4 ckpt", ["--zero1", "--steps", "2", "--ckpt-dir",
                                     str(ck), "--ckpt-every", "1"])
@@ -2338,14 +2780,19 @@ def phase_zero1(dev):
             f"equals reshard_owned of it restored onto entry 0's: {ok}")
         assert ok, "restore onto the degraded map differs from reshard"
         del on0, on1, moved
+        ZERO1_REF["ckpt"] = ck
+        kept = True
     finally:
-        shutil.rmtree(ck, ignore_errors=True)
+        if not kept:
+            shutil.rmtree(ck, ignore_errors=True)
     del z1
     torch.cuda.empty_cache()
 
     # 5. the recovery loop: --recover, then a masked link until the flip
     rec = run("edst torus4x4 recover", ["--sync", "edst", "--recover",
                                         "--steps", "2"], keep=True)
+    ZERO1_REF["run5"] = {"losses": rec.losses, "grad_norms": rec.grad_norms,
+                         "params": flat_of(rec.params).cpu()}
     opt2 = AdamW(cosine_schedule(3e-4, 20, 2))
     _held_to_psum("zero1 recover step 1 (dense edst on entry 0)",
                   rec.init_params, opt2.init(rec.init_params), batch(0),
@@ -2364,6 +2811,8 @@ def phase_zero1(dev):
     assert dec.action == "flip" and ctrl.schedule_id != 0
     for row in ctrl.journal_rows():
         log(f"recover journal: {json.dumps(row)}")
+    ZERO1_REF["run5"]["journal"] = ctrl.journal_rows()
+    ZERO1_REF["run5"]["flip_tick"] = tick
     step_fn = make_train_step(api, opt2, TORUS_MESH, MESH_NAMES,
                               mode="edst", fault_runtime=ctrl.runtime,
                               telemetry=True)
@@ -2379,9 +2828,12 @@ def phase_zero1(dev):
     _held_to_psum(f"zero1 recover step 3 ({ctrl.runtime.entry.name})",
                   rec.params, rec.opt_state, batch(2), new_params,
                   met["grad_norm"], opt2)
+    ZERO1_REF["run5"]["flipped"] = {"loss": float(met["loss"]),
+                                    "grad_norm": float(met["grad_norm"]),
+                                    "params": flat_of(new_params).cpu()}
     del rec, new_params
     torch.cuda.empty_cache()
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(phase_peak, torch.cuda.max_memory_allocated())
     log(f"zero1 phase peak memory: {peak / 1e9:.2f} GB (limit 60)")
     assert peak < 60e9, peak
     return per_run
@@ -2415,8 +2867,9 @@ def flat_of(tree):
 
 
 def phase_elastic(dev):
-    """The fault loop closed at full width: the static verifier on the
-    path's specs, the chaos loop ending in a rescale, the elastic CLI,
+    """The fault loop closed at full width (smollm-135m at
+    ``ELASTIC_LAYERS`` of its 30 layers, d 576): the static verifier on
+    the path's specs, the chaos loop ending in a rescale, the elastic CLI,
     the Roskind-Tarjan rescale onto 15 survivors, and the failure drill.
     Every counted run is set to 0 just before it and read just after;
     returns ``{run: {kernel: launches}}``.
@@ -2455,7 +2908,7 @@ def phase_elastic(dev):
     from repro_torch.launch import elastic, train
     from repro_torch.optim import AdamW, cosine_schedule
     t_phase = time.perf_counter()
-    cfg = fault_loop_cfg()
+    cfg = elastic_cfg()
     per_run = {}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2497,7 +2950,7 @@ def phase_elastic(dev):
     def check(tag, params, opt_state, batch, new_params, grad_norm, mesh,
               opt):
         return _held_to_psum(tag, params, opt_state, batch, new_params,
-                             grad_norm, opt, mesh=mesh)
+                             grad_norm, opt, mesh=mesh, cfg=cfg)
 
     try:
         reset_all()
@@ -2536,7 +2989,7 @@ def phase_elastic(dev):
         with contextlib.redirect_stdout(out):
             params, opt_state, step = elastic.main(
                 ["--ckpt-dir", str(ck), "--to-mesh", "2,4,1",
-                 "--arch", "smollm-135m"])
+                 "--arch", "smollm-135m"], cfg=cfg)
         printed = out.getvalue().strip()
         exact = step == s and elastic.same_state(
             params, opt_state, saved["params"], saved["opt_state"])
@@ -2573,7 +3026,7 @@ def phase_elastic(dev):
                     dtype=torch.long, device=dev)}
                 _held_to_psum(f"{tag} step {s}", params, opt_state, batch,
                               r.first_step_params, r.grad_norms[0], opt,
-                              mesh=RESUME_MESH)
+                              mesh=RESUME_MESH, cfg=cfg)
                 del batch
             del r
         del params, opt_state
@@ -2655,7 +3108,8 @@ def phase_elastic(dev):
 
 
 SWEEP_SEGMENTS = (1, 2, 4, 8)
-TELEMETRY_PEAK = 46.34e9    # phase_elastic's peak on an H100
+# phase_elastic's peak on an H100 when it trained the model at full depth
+TELEMETRY_PEAK = 46.34e9
 
 
 def best_of(fns, rounds):
@@ -2925,31 +3379,48 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    phase_build()
-    rows = phase_kernels(dev) + [phase_flash(dev), phase_rglru(dev),
-                                 phase_wkv6(dev)]
+    secs = {}
+
+    def timed_phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        secs[name] = secs.get(name, 0.0) + time.perf_counter() - t
+        return out
+
+    timed_phase("build", phase_build)
+    rows = timed_phase("kernels", lambda: phase_kernels(dev) + [
+        phase_flash(dev), phase_rglru(dev), phase_wkv6(dev)])
 
     # the main paths, each run counted on its own
-    per_run = phase_allreduce(dev)
-    per_run.update(phase_train(dev))
-    per_run.update(phase_train_families(dev))
-    per_run.update(phase_serve(dev))
-    per_run.update(phase_zero1(dev))
-    per_run.update(phase_elastic(dev))
-    per_run.update(phase_telemetry(dev))
-    # last: the NCCL group's memory outside PyTorch's pool (its comm and
-    # streams) would take from the serving phase's f32 checks, which fill
-    # the card to within 1 GB
-    per_run.update(phase_fabric(dev))
+    phases = {"allreduce": timed_phase("allreduce", phase_allreduce, dev),
+              "train": timed_phase("train", phase_train, dev)}
+    phases["train"].update(timed_phase("train", phase_train_families, dev))
+    for name, fn in (("serve", phase_serve), ("zero1", phase_zero1),
+                     ("elastic", phase_elastic),
+                     ("telemetry", phase_telemetry),
+                     # last: the NCCL group's memory outside PyTorch's pool
+                     # (its comm and streams) would take from the serving
+                     # phase's f32 checks, which fill the card to within 1 GB
+                     ("fabric", phase_fabric)):
+        phases[name] = timed_phase(name, fn, dev)
+    log("seconds by phase: " + ", ".join(f"{k} {v:.1f}"
+                                         for k, v in secs.items()))
+    per_run = {tag: c for runs in phases.values() for tag, c in runs.items()}
+    by_phase = {ph: {name: sum(c[name] for c in runs.values())
+                     for name in counts()} for ph, runs in phases.items()}
     launches = {name: sum(c[name] for c in per_run.values())
                 for name in counts()}
     log(f"launches over the allreduce, training (smollm-135m and the other "
         f"token families), process-group fabric, serving, zero1, elastic "
-        f"and telemetry runs: {launches}")
+        f"and telemetry runs: {launches}; by phase: {by_phase}")
     for name, n in launches.items():
         assert n > 0, f"{name} never launched on its path"
+    for name in ("tree_combine", "q8_pack_rows", "q8_unpack_rows"):
+        assert by_phase["fabric"][name] > 0, (name, by_phase["fabric"])
     for r in rows:
         r["launches"] = launches[r["name"]]
+        r["launches_by_phase"] = {ph: c[r["name"]]
+                                  for ph, c in by_phase.items()}
         r["launches_by_path"] = {tag: c[r["name"]]
                                  for tag, c in per_run.items()}
     log(f"total {time.perf_counter() - t0:.1f}s")

@@ -74,8 +74,9 @@ environment variable (``"cheap"`` by default; the tests set ``full``).
 
 Not ported: the reference's ``hlo_contract_for``, which states what an
 XLA HLO compile of a spec must contain and needs its ``analysis/hlo.py``
-(XLA-specific), and the CLI's ``--trace``, which writes a Perfetto file
-through its ``telemetry/trace.py``.
+(XLA-specific).  The CLI's ``--trace DIR`` writes each verified spec's
+predicted Perfetto trace into ``DIR`` through
+:mod:`repro_torch.telemetry.trace`, as the reference's does.
 
 CLI::
 

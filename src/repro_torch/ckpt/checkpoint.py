@@ -23,12 +23,12 @@ from __future__ import annotations
 import json
 import os
 import shutil
-import tempfile
 import zlib
 
 import numpy as np
 import torch
 
+from ..dist.fabric import StackedFabric
 from ..optim.sharded import ShardedOptState
 
 
@@ -93,23 +93,38 @@ def _unflatten_into(template, flat, prefix=""):
     return _place(flat[prefix[:-1]], template)
 
 
-def _commit_step_dir(ckpt_dir: str, step: int, write_fn) -> str:
-    """Shared atomic-publish path: ``write_fn(tmp_dir)`` stages the files,
-    then one os.rename makes the step visible; keeps the 2 newest steps."""
-    os.makedirs(ckpt_dir, exist_ok=True)
-    tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_")
+def _commit_step_dir(ckpt_dir: str, step: int, write_lead, write_each=None,
+                     fabric=None) -> str:
+    """Shared atomic-publish path over the ranks of ``fabric`` (one
+    process without one): every rank stages its files with
+    ``write_each(tmp)``, then, after a barrier, rank 0 stages the rest
+    with ``write_lead(tmp)`` and one os.rename makes the step visible
+    (replacing one of the same step); keeps the 2 newest steps.  Returns
+    once the step is visible to every rank."""
+    fabric = fabric or StackedFabric(1, "cpu")
+    lead = fabric.rank == 0
+    tmp = os.path.join(ckpt_dir, f".tmp_step_{step:08d}")
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if lead:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.mkdir(tmp)
+    fabric.barrier()
     try:
-        write_fn(tmp)
-        final = os.path.join(ckpt_dir, f"step_{step:08d}")
-        if os.path.exists(final):
-            shutil.rmtree(final)
-        os.rename(tmp, final)
+        if write_each is not None:
+            write_each(tmp)
+        fabric.barrier()            # every rank's files are on disk
+        if lead:
+            write_lead(tmp)
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.rename(tmp, final)
+            for s in sorted(latest_steps(ckpt_dir))[:-2]:
+                shutil.rmtree(os.path.join(ckpt_dir, f"step_{s:08d}"))
     finally:
-        if os.path.exists(tmp):
-            shutil.rmtree(tmp)
-    steps = sorted(latest_steps(ckpt_dir))
-    for s in steps[:-2]:
-        shutil.rmtree(os.path.join(ckpt_dir, f"step_{s:08d}"))
+        if lead:
+            shutil.rmtree(tmp, ignore_errors=True)
+    fabric.barrier()                # the step is visible to every rank
     return final
 
 
@@ -166,28 +181,38 @@ def restore(ckpt_dir: str, template, step: int | None = None):
 
 def save_sharded_checkpoint(ckpt_dir: str, step: int, params,
                             opt_state: ShardedOptState, elem_map, size: int,
-                            extra: dict | None = None):
+                            extra: dict | None = None, fabric=None):
     """Sharded ZeRO-1 save: params (replicated) go to ``arrays.npz``; each
     owner vertex ``v`` gets ``shard_<v>.npz`` with its ``mu`` / ``nu``
     stripe rows and the ``(kmax, smax)`` element-id row (-1 = padding).
     ``elem_map`` is the ``(n, kmax, smax)`` ownership map of the fabric
     the state was trained on (``owner_element_map`` for a plain spec,
     ``FaultAwareAllreduce.zero1_element_map`` for the active failure
-    class)."""
+    class).  ``opt_state`` holds the rows of ``fabric``'s local vertices
+    (all n without one); over the ranks of a process group every rank
+    calls this: each writes the shards of its own vertices, rank 0 the
+    params and the manifest, and it returns once the step is published."""
     elem = np.asarray(elem_map)
     n = int(elem.shape[0])
+    fabric = fabric or StackedFabric(n, "cpu")
     mu = _to_numpy(opt_state.mu)
     nu = _to_numpy(opt_state.nu)
-    arrays = {k: _to_numpy(v) for k, v in _flatten(params).items()}
+    if mu.shape[0] != fabric.rows:
+        raise ValueError(f"{mu.shape[0]} moment rows for vertices "
+                         f"{fabric.lo}..{fabric.hi - 1}")
+    arrays = {k: _to_numpy(v) for k, v in _flatten(params).items()} \
+        if fabric.rank == 0 else {}
 
-    def write(tmp):
-        np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
-        checksums = {}
-        for v in range(n):
-            name = f"shard_{v:05d}.npz"
-            np.savez(os.path.join(tmp, name), mu=mu[v], nu=nu[v],
+    def write_shards(tmp):
+        for v in fabric.vertices:
+            np.savez(os.path.join(tmp, _shard_name(v)),
+                     mu=mu[v - fabric.lo], nu=nu[v - fabric.lo],
                      elem=elem[v])
-            checksums[name] = _file_crc32(os.path.join(tmp, name))
+
+    def write_rest(tmp):
+        np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+        checksums = {_shard_name(v): _file_crc32(
+            os.path.join(tmp, _shard_name(v))) for v in range(n)}
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump({"step": step, "keys": sorted(arrays),
                        "sharded": {
@@ -198,17 +223,23 @@ def save_sharded_checkpoint(ckpt_dir: str, step: int, params,
                            "checksums": checksums},
                        "extra": extra or {}}, f)
 
-    return _commit_step_dir(ckpt_dir, step, write)
+    return _commit_step_dir(ckpt_dir, step, write_rest, write_shards, fabric)
+
+
+def _shard_name(v: int) -> str:
+    return f"shard_{v:05d}.npz"
 
 
 def restore_sharded(ckpt_dir: str, params_template, elem_map,
-                    step: int | None = None):
+                    step: int | None = None, fabric=None):
     """Restore a sharded ZeRO-1 checkpoint onto the fabric described by
     ``elem_map`` (the *target* ``(n', kmax', smax')`` ownership map: the
     save-time map gives the saved layout back bit for bit, another map
-    re-shards).  The moments land on the params template's device.
-    Returns ``(params, ShardedOptState, step, extra)`` or
-    ``(None,) * 4`` when the directory holds no checkpoint."""
+    re-shards).  The moments land on the params template's device: the
+    rows of ``fabric``'s local vertices (a process-group rank's own
+    block), all n' without one.  Returns ``(params, ShardedOptState,
+    step, extra)`` or ``(None,) * 4`` when the directory holds no
+    checkpoint."""
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         return None, None, None, None
@@ -224,7 +255,7 @@ def restore_sharded(ckpt_dir: str, params_template, elem_map,
     mu_flat = np.zeros(size, np.float32)
     nu_flat = np.zeros(size, np.float32)
     for v in range(int(geom["n"])):
-        name = f"shard_{v:05d}.npz"
+        name = _shard_name(v)
         shard_path = os.path.join(path, name)
         if name in checksums and _file_crc32(shard_path) != checksums[name]:
             raise ValueError(
@@ -239,6 +270,11 @@ def restore_sharded(ckpt_dir: str, params_template, elem_map,
             nu_flat[e[mask]] = shard["nu"][mask]
 
     tgt = np.asarray(elem_map)
+    if fabric is not None:
+        if fabric.n != tgt.shape[0]:
+            raise ValueError(f"fabric of {fabric.n} vertices for a map of "
+                             f"{tgt.shape[0]}")
+        tgt = tgt[fabric.lo:fabric.hi]
     mu = np.zeros(tgt.shape, np.float32)
     nu = np.zeros(tgt.shape, np.float32)
     live = tgt >= 0

@@ -18,7 +18,10 @@ ids.  A ``jax.lax.ppermute`` becomes a gather into a zero-filled buffer for
 the pairs whose two ends are local, and one ``batch_isend_irecv`` for the
 pairs that cross ranks; ``jax.lax.axis_index`` is the local ids, and a
 per-vertex table ``(n,)`` indexed by the axis index is a column mask
-``(rows, 1, ...)`` (:meth:`column`).
+``(rows, 1, ...)`` (:meth:`column`).  The few values every rank must
+agree on (a probe's bitmap, a step time, whether a background rebuild has
+finished everywhere) go through :meth:`all_reduce` and :meth:`all_true`,
+which are the identity on the stacked fabric.
 
 Vertices nobody sends to receive **exact zeros**, as under ``ppermute``.
 The executors rely on it: a wave whose every arrival accumulates into one
@@ -62,19 +65,6 @@ def world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def stacked_only(asked: dict, world: int | None = None) -> None:
-    """Raise, naming it, the first feature of ``asked`` (``{name: whether
-    it is asked for}``) that runs on the stacked fabric only, when the
-    fabric spans ``world`` ranks (the default group's size when None)
-    and that is more than one."""
-    world = world_size() if world is None else world
-    if world > 1:
-        for what, on in asked.items():
-            if on:
-                raise ValueError(f"{what} runs on the stacked fabric only, "
-                                 f"not over {world} ranks")
-
-
 @dataclass(frozen=True)
 class _Plan:
     """One permutation's exchange on this rank: the local gather's index
@@ -86,7 +76,13 @@ class _Plan:
 
 
 class _BlockFabric:
-    """Vertices ``[lo, hi)`` of ``n`` as rows of tensors on ``device``."""
+    """Vertices ``[lo, hi)`` of ``n`` as rows of tensors on ``device``,
+    this process being rank ``rank`` of ``world`` (``blocks``: every
+    rank's ``(lo, hi)``; ``group``: the process group, None when
+    stacked)."""
+    world = 1
+    rank = 0
+    group = None
 
     def __init__(self, n: int, device, lo: int, hi: int):
         self.n = int(n)
@@ -142,6 +138,34 @@ class _BlockFabric:
     def owns(self, v: int) -> bool:
         return self.lo <= v < self.hi
 
+    def all_reduce(self, t, op=dist.ReduceOp.SUM):
+        """``t`` (on the fabric's device) reduced in place over the ranks
+        with ``op``; on the stacked fabric, which is one rank, as it is."""
+        self._check_device(t.device)
+        self._all_reduce(t, op)
+        return t
+
+    def all_true(self, flag: bool) -> bool:
+        """Whether ``flag`` holds on every rank (over ranks one
+        ``all_reduce`` MIN of a one-element tensor on the fabric's
+        device)."""
+        return bool(flag)
+
+    def barrier(self) -> None:
+        """Return once every rank has reached it (over ranks the host
+        waits for the device's one-element ``all_reduce``)."""
+
+    def gather(self, x):
+        """Every rank's ``(rows, ...)`` block of ``x`` concatenated in
+        vertex order, ``(n, ...)``, on every rank (one ``all_gather``); on
+        the stacked fabric ``x`` itself."""
+        return x
+
+    def broadcast(self, t, vertex: int):
+        """``t`` as the rank that holds ``vertex`` has it, on every rank
+        (in place); on the stacked fabric ``t`` itself."""
+        return t
+
     def _perm(self, perm):
         hit = self._perms.get(perm)
         if hit is None:
@@ -162,7 +186,7 @@ class _BlockFabric:
     def _exchange(self, x, out, ops) -> None:
         raise NotImplementedError
 
-    def _all_reduce(self, t) -> None:
+    def _all_reduce(self, t, op=dist.ReduceOp.SUM) -> None:
         pass
 
     def _check_device(self, device) -> None:
@@ -174,6 +198,7 @@ class StackedFabric(_BlockFabric):
 
     def __init__(self, n: int, device):
         super().__init__(n, device, 0, n)
+        self.blocks = [(0, self.n)]
 
 
 class ProcessGroupFabric(_BlockFabric):
@@ -233,8 +258,29 @@ class ProcessGroupFabric(_BlockFabric):
         for req in dist.batch_isend_irecv(p2p):
             req.wait()
 
-    def _all_reduce(self, t) -> None:
-        dist.all_reduce(t, group=self.group)
+    def _all_reduce(self, t, op=dist.ReduceOp.SUM) -> None:
+        dist.all_reduce(t, op=op, group=self.group)
+
+    def all_true(self, flag: bool) -> bool:
+        t = torch.tensor([int(bool(flag))], dtype=torch.int32,
+                         device=self.device)
+        return bool(self.all_reduce(t, dist.ReduceOp.MIN).item())
+
+    def barrier(self) -> None:
+        self.all_true(True)
+
+    def gather(self, x):
+        self._check_device(x.device)
+        return gather_blocks(x, [hi - lo for lo, hi in self.blocks],
+                             self.group)
+
+    def broadcast(self, t, vertex: int):
+        self._check_device(t.device)
+        src = int(self._owner[vertex])
+        if self.group is not None:
+            src = dist.get_global_rank(self.group, src)
+        dist.broadcast(t, src=src, group=self.group)
+        return t
 
 
 def gather_blocks(x, counts, group=None):

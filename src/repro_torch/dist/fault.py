@@ -4,7 +4,8 @@
 ``repro_torch.core.fault`` knows *what* to do when links die (keep the
 surviving edge-disjoint trees, repack the residual fabric with
 Roskind-Tarjan, re-stripe chunks around stragglers).  This module turns
-it into runnable behaviour on the stacked fabric:
+it into runnable behaviour on a fabric (the stacked one, or a
+process-group rank's block of vertices):
 
   * :class:`FaultAwareAllreduce` compiles, up front, one wave program per
     *failure class*: the healthy k-tree schedule, one degraded (k-1)-tree
@@ -40,6 +41,7 @@ from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..analysis.verify import check_schedule_id, verify_spec
@@ -55,6 +57,7 @@ from ..core.edst_rt import max_edsts
 from ..core.fault import FailureEvent, rebalance_chunks
 from ..core.graph import Graph, canon
 from ..telemetry import metrics as _metrics
+from .fabric import StackedFabric
 from .striped import (owner_stripes, striped_allreduce, tree_allgather,
                       tree_reduce_scatter)
 from .tree_allreduce import fused_tree_allreduce, pipelined_tree_allreduce
@@ -116,8 +119,8 @@ def striped_tree_allreduce(x, spec, fabric, fractions, quantize: bool = False,
 
 
 def _pad_stripes(owned, kmax: int, smax: int):
-    """Zero-pad an ``(n, k, s)`` stripe stack to the runtime-wide
-    ``(n, kmax, smax)`` so every entry returns one common shape."""
+    """Zero-pad a ``(rows, k, s)`` stripe stack to the runtime-wide
+    ``(rows, kmax, smax)`` so every entry returns one common shape."""
     _, k, s = owned.shape
     if k == kmax and s == smax:
         return owned
@@ -160,8 +163,9 @@ class FaultAwareAllreduce:
     active: int = 0
     history: list = field(default_factory=list)
     engine: str = "pipelined"      # compiled form of every entry's spec
-    # device gather indices of reshard_owned, keyed (from_id, to_id, size,
-    # device); shared across on_failure replaces so a flip builds none
+    # reshard_owned's plans (index tensors on the state's device), keyed
+    # (from_id, to_id, size, device, block); shared across on_failure
+    # replaces so a flip builds none
     _reshard_cache: dict = field(default_factory=dict, repr=False)
 
     @classmethod
@@ -366,41 +370,120 @@ class FaultAwareAllreduce:
                 i += 1
         return perm
 
-    def reshard_owned(self, arr, from_id: int, to_id: int, size: int):
-        """Re-shard ``(n, kmax, smax)`` owner-stripe state (zero1 ``mu`` /
-        ``nu``) from one failure class's ownership to another's: one
-        gather, exact (a permutation of the same elements), into a new
-        tensor.  Runs outside the train step, which re-stripes the
-        collectives itself.  The gather index lives on ``arr``'s device,
-        built once per (from_id, to_id, size, device): repeated flips,
-        and the flip back, build none."""
+    def reshard_owned(self, arr, from_id: int, to_id: int, size: int,
+                      fabric=None):
+        """Re-shard owner-stripe state (zero1 ``mu`` / ``nu``) from one
+        failure class's ownership to another's, exact (a permutation of
+        the same elements), into a new tensor.  Runs outside the train
+        step, which re-stripes the collectives itself.
+
+        ``arr`` holds the rows of ``fabric``'s local vertices: the whole
+        ``(n, kmax, smax)`` state without a fabric or on the stacked one,
+        a process-group rank's own block on a
+        :class:`~repro_torch.dist.fabric.ProcessGroupFabric`.  The
+        elements that stay on the rank are one local gather; those that
+        change rank travel in one ``batch_isend_irecv`` (a message a pair
+        of ranks), so no rank holds more than its old and new rows and
+        what it sends.  The plan lives on ``arr``'s device, built once per
+        (from_id, to_id, size, device) and block: repeated flips, and the
+        flip back, build none."""
         self._require_striped()
         from_id, to_id = self.gate(from_id), self.gate(to_id)
-        key = (from_id, to_id, int(size), arr.device)
-        idx = self._reshard_cache.get(key)
-        if idx is None:
-            perm = self.owned_permutation(from_id, to_id, size).reshape(-1)
-            # padding reads the one zero appended past the state's end
-            perm[perm < 0] = perm.size
-            dt = torch.int32 if perm.size < 2 ** 31 - 1 else torch.int64
-            idx = torch.from_numpy(perm).to(device=arr.device, dtype=dt)
-            del perm
-            self._reshard_cache[key] = idx
-        flat = torch.cat([arr.reshape(-1), arr.new_zeros(1)])
-        return flat.index_select(0, idx).reshape(arr.shape)
+        if fabric is None:
+            fabric = StackedFabric(self.graph.n, arr.device)
+        if arr.shape[0] != fabric.rows:
+            raise ValueError(f"expected {fabric.rows} owner rows, got "
+                             f"{tuple(arr.shape)}")
+        key = (from_id, to_id, int(size), arr.device, fabric.lo, fabric.hi,
+               fabric.world)
+        plan = self._reshard_cache.get(key)
+        if plan is None:
+            plan = self._reshard_cache[key] = self._block_plan(
+                from_id, to_id, size, fabric, arr.device)
+        local, pad, sends, recvs = plan
+        flat = arr.reshape(-1)
+        out = flat.index_select(0, local)
+        stripes = out.view(-1, arr.shape[-1])
+        for row, width in pad:
+            stripes[row, width:] = 0
+        ops, bufs = [], []
+        for peer, idx in sends:
+            ops.append(dist.P2POp(dist.isend, flat.index_select(0, idx),
+                                  peer, fabric.group))
+        for peer, dst in recvs:
+            bufs.append((dst, arr.new_empty(dst.numel())))
+            ops.append(dist.P2POp(dist.irecv, bufs[-1][1], peer,
+                                  fabric.group))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        del ops
+        for dst, buf in bufs:
+            out[dst] = buf
+        return out.reshape(arr.shape)
+
+    def _block_plan(self, from_id, to_id, size, fabric, device):
+        """``(local, pad, sends, recvs)`` of a block's reshard, built on
+        the host and moved to ``device`` as index tensors: ``local``
+        gathers every new-layout element of the block's rows from its old
+        rows (an element that arrives from another rank, or is padding,
+        reads slot 0 and is overwritten); ``pad`` ``[(stripe row, width)]``
+        for every ``(vertex, tree)`` stripe row of the block whose
+        new-layout stripe is narrower than ``smax`` (its tail is padding);
+        ``sends`` ``[(peer's global rank, old slots)]`` and ``recvs``
+        ``[(peer's global rank, new slots)]`` in the order of the new
+        layout's linear index, one entry a peer, the same order on both
+        ends."""
+        kmax, smax = self.zero1_geometry(size)
+        per = kmax * smax
+        perm = self.owned_permutation(from_id, to_id, size).reshape(
+            self.graph.n, per)
+        lo, hi = fabric.lo * per, fabric.hi * per
+        dt = np.int32 if fabric.rows * per < 2 ** 31 - 1 else np.int64
+
+        def peer(r):
+            return dist.get_global_rank(fabric.group, r) \
+                if fabric.group is not None else r
+
+        def index(a):
+            return torch.from_numpy(a.astype(dt)).to(device)
+
+        # old global slots; vertex v's rows are slots [v * per, (v+1) * per)
+        mine = perm[fabric.lo:fabric.hi].reshape(-1)
+        sends, recvs = [], []
+        for r, (rlo, rhi) in enumerate(fabric.blocks):
+            if r == fabric.rank:
+                continue
+            from_r = np.flatnonzero((mine >= rlo * per) & (mine < rhi * per))
+            if from_r.size:
+                recvs.append((peer(r), index(from_r)))
+            theirs = perm[rlo:rhi].reshape(-1)
+            take = theirs[(theirs >= lo) & (theirs < hi)]
+            if take.size:
+                sends.append((peer(r), index(take - lo)))
+        local = np.where((mine >= lo) & (mine < hi), mine - lo, 0)
+        widths = np.zeros((fabric.rows, kmax), np.int64)
+        for v, j, _, width in self._stripe_runs(size, to_id):
+            if fabric.owns(v):
+                widths[v - fabric.lo, j] = width
+        pad = tuple((row, int(w)) for row, w in enumerate(widths.reshape(-1))
+                    if w < smax)
+        return index(local), pad, tuple(sends), tuple(recvs)
 
     def make_zero1_sync(self, quantize: bool = False, codec=None):
         """The three scattered-domain primitives of the zero1 step, each a
         table of prebuilt callables indexed by the schedule id:
 
-          * ``rs(grads, sid, fabric)`` -- reduce-scatter of the ``(n, P)``
-            stacked gradients -> ``(n, kmax, smax)`` summed owner stripes
+          * ``rs(grads, sid, fabric)`` -- reduce-scatter of the ``(rows,
+            P)`` gradients of the fabric's local vertices -> ``(rows,
+            kmax, smax)`` summed owner stripes
             (the codec policy applies to these wires);
-          * ``slices(vec, sid)`` -- communication-free owner-stripe cut of
-            ONE replicated ``(P,)`` vector (params, decay mask) ->
-            ``(n, kmax, smax)``;
+          * ``slices(vec, sid, fabric=None)`` -- communication-free
+            owner-stripe cut of ONE replicated ``(P,)`` vector (params,
+            decay mask) -> ``(rows, kmax, smax)``, the fabric's local
+            vertices' (all n without one);
           * ``ag(owned, sid, shape, fabric)`` -- allgather of the updated
-            params -> ``(n, *shape)``.  Always full precision: params
+            params -> ``(rows, *shape)``.  Always full precision: params
             derived from optimizer state must not accumulate wire
             quantization error across steps.
 
@@ -420,12 +503,13 @@ class FaultAwareAllreduce:
             return run
 
         def slices_branch(e):
-            def run(vec):
+            def run(vec, fabric):
                 kmax, smax = self.zero1_geometry(vec.numel())
                 if e.k == 0:
-                    return vec.new_zeros((self.graph.n, kmax, smax))
-                return _pad_stripes(owner_stripes(vec, e.spec, e.fractions),
-                                    kmax, smax)
+                    rows = self.graph.n if fabric is None else fabric.rows
+                    return vec.new_zeros((rows, kmax, smax))
+                return _pad_stripes(owner_stripes(vec, e.spec, e.fractions,
+                                                  fabric), kmax, smax)
             return run
 
         def ag_branch(e):
@@ -445,8 +529,8 @@ class FaultAwareAllreduce:
         def rs(grads, sid, fabric):
             return rs_t[self.gate(sid)](grads, fabric)
 
-        def slices(vec, sid):
-            return sl_t[self.gate(sid)](vec)
+        def slices(vec, sid, fabric=None):
+            return sl_t[self.gate(sid)](vec, fabric)
 
         def ag(owned, sid, shape, fabric):
             return ag_t[self.gate(sid)](owned, shape, fabric)

@@ -1,5 +1,6 @@
 """Fault *detection* for the EDST collective engines (the reference's
-``repro/dist/health.py``), on the stacked fabric.
+``repro/dist/health.py``), on a fabric: the stacked one, or the ranks of
+a ``torch.distributed`` group, each holding a block of the vertices.
 
 :mod:`repro_torch.dist.fault` recovers from failures it is told about --
 a ``FailureEvent`` flips the schedule id.  This module is the sensing
@@ -8,13 +9,15 @@ escalation ladder lives in :mod:`repro_torch.dist.recovery`):
 
   * **link heartbeat probes** -- every directed link any compiled wave
     program uses (read from the spec's own routing tables) is echoed
-    with a one-element token through ``StackedFabric.ppermute``.  The
+    with a one-element token through the fabric's ``ppermute``.  The
     sender ships ``rank + 1``; the receiver compares it with the
     statically known sender (``ppermute`` zero-fills vertices nobody
     sent to, so a dead wire reads 0 and never aliases a healthy token).
     Each wave's results land in an ``(L,)`` link-OK bitmap, one slot a
     link: the reference's ``psum`` over the devices is one
-    ``index_add_`` over the stacked vertex rows.
+    ``index_add_`` over the local vertex rows (each rank reads the links
+    that end at its own vertices) and, over ranks, one ``all_reduce``,
+    after which every rank holds the global bitmap.
   * **payload checksums** -- after a gradient allreduce every vertex row
     must hold bit-identical sums; :func:`replication_divergence` is the
     spread of a per-row (sum, sum-of-squares) checksum over the rows.
@@ -23,6 +26,14 @@ escalation ladder lives in :mod:`repro_torch.dist.recovery`):
     (:func:`repro_torch.dist.striped.rs_conservation_gap`).
   * **straggler detection** -- wall-clock step times against a rolling
     median (:class:`StragglerDetector`).
+
+Over ranks every input a recovery decision reads is agreed before the
+decision, so each rank's :class:`repro_torch.dist.recovery.RecoveryController`
+takes the same one at the same tick: :meth:`HealthMonitor.check` reduces
+the probe's failures and the step time in one ``all_reduce`` MAX (the
+slowest rank's step time), :meth:`HealthMonitor.clock` is the latest
+rank's clock reading, and the checksum spread is already global (the step
+gathers the per-row checksums in vertex order).
 
 :class:`HealthMonitor` bundles the three behind one ``check(step, ...)``
 returning a :class:`HealthReport`, whose ``failed_edges()`` /
@@ -34,15 +45,17 @@ faults; on a real fabric it stays all ones.
 from __future__ import annotations
 
 import collections
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..analysis.verify import engine_of
 from ..core.graph import canon
 from ..telemetry import metrics as _metrics
-from .fabric import StackedFabric
+from .fabric import StackedFabric, _BlockFabric
 
 
 # ---------------------------------------------------------------------------
@@ -144,39 +157,68 @@ def compile_link_probe(spec_or_runtime) -> LinkProbeSpec:
                          recv_slot=tuple(recv_slot))
 
 
-def fabric_link_probe(fabric: StackedFabric, spec_or_runtime):
-    """The heartbeat on a stacked fabric: returns ``(run, plan)`` where
-    ``run(fault_mask=None) -> np.ndarray (L,) of {0., 1.}`` (1.0 = the
-    echo arrived intact).  One ``(n, 1)`` token goes through
-    ``fabric.ppermute`` once per probe wave; ``fault_mask`` (``(L,)``,
-    default all ones) is ANDed on the receive side.  The plan's tables
-    live on the fabric's device, built once."""
-    plan = compile_link_probe(spec_or_runtime)
+def _probe_failures(fabric, plan):
+    """``run(fault_mask=None) -> (L,) float64`` on the fabric's device: 1.0
+    in the slot of every link that ends at a local vertex and whose echo
+    did not arrive intact, 0.0 elsewhere (so the maximum over the ranks is
+    the global failure map)."""
     if fabric.n != plan.n:
         raise ValueError(f"probe plan for n={plan.n}, fabric n={fabric.n}")
-    L, dev = plan.num_links, fabric.device
-    token = (torch.arange(plan.n, device=dev, dtype=torch.float32)
+    L, dev, lo, hi = plan.num_links, fabric.device, fabric.lo, fabric.hi
+    token = (torch.arange(lo, hi, device=dev, dtype=torch.float32)
              + 1.0)[:, None]
-    expect = [torch.as_tensor(src, device=dev).float() + 1.0
+    expect = [torch.as_tensor(src[lo:hi], device=dev).float() + 1.0
               for src in plan.recv_src]
-    slots = [torch.as_tensor(slt, device=dev).long() for slt in plan.recv_slot]
+    slots = [torch.as_tensor(slt[lo:hi], device=dev).long()
+             for slt in plan.recv_slot]
     ones = torch.ones(L, dtype=torch.float32, device=dev)
 
     def run(fault_mask=None):
         mask = ones if fault_mask is None else torch.as_tensor(
             fault_mask, dtype=torch.float32, device=dev)
         # slot L is the spill row for non-receivers (-1 -> L), cut at the end
-        bitmap = torch.zeros(L + 1, dtype=torch.float32, device=dev)
+        failed = torch.zeros(L + 1, dtype=torch.float64, device=dev)
         for w, wave in enumerate(plan.waves):
             recv = fabric.ppermute(token, wave)[:, 0]
             slot = slots[w]
             live = slot >= 0
             ok = (recv == expect[w]).float() * mask[slot.clamp(min=0)]
-            bitmap.index_add_(0, torch.where(live, slot, L),
-                              torch.where(live, ok, 0.0))
-        return bitmap[:L].cpu().numpy()
+            failed.index_add_(0, torch.where(live, slot, L),
+                              torch.where(live, 1.0 - ok, 0.0).double())
+        return failed[:L]
+
+    return run
+
+
+def fabric_link_probe(fabric, spec_or_runtime):
+    """The heartbeat on a fabric (stacked, or a process-group rank's
+    block): returns ``(run, plan)`` where ``run(fault_mask=None) ->
+    np.ndarray (L,) of {0., 1.}`` (1.0 = the echo arrived intact), the
+    global bitmap on every rank.  One ``(rows, 1)`` token goes through
+    ``fabric.ppermute`` once per probe wave; each rank reads the links
+    that end at its own vertices, and one ``all_reduce`` over the ranks
+    combines them.  ``fault_mask`` (``(L,)``, default all ones) is ANDed
+    on the receive side.  The plan's tables live on the fabric's device,
+    built once."""
+    plan = compile_link_probe(spec_or_runtime)
+    failures = _probe_failures(fabric, plan)
+
+    def run(fault_mask=None):
+        return _agreed_probe(fabric, failures(fault_mask))[0]
 
     return run, plan
+
+
+def _agreed_probe(fabric, failed, *values):
+    """``(bitmap, values)``: the global ``(L,)`` link-OK bitmap from every
+    rank's local failures and the maximum over the ranks of each of
+    ``values``, in one ``all_reduce`` MAX (on the stacked fabric the
+    identity)."""
+    extra = torch.tensor(values, dtype=torch.float64, device=fabric.device)
+    vals = fabric.all_reduce(torch.cat([failed, extra]), dist.ReduceOp.MAX)
+    vals = vals.cpu().numpy()
+    L = failed.numel()
+    return (1.0 - vals[:L]).astype(np.float32), vals[L:]
 
 
 # ---------------------------------------------------------------------------
@@ -273,24 +315,32 @@ class HealthReport:
 
 
 class HealthMonitor:
-    """Caller-side bundle of the three detectors for one stacked fabric
-    (or a device, on which one is built) and a spec or runtime.
+    """Caller-side bundle of the three detectors for one fabric and a spec
+    or runtime.  ``fabric_or_device`` is a fabric (stacked, or a
+    process-group rank's block) or a device, on which a
+    :class:`~repro_torch.dist.fabric.StackedFabric` is built.
 
     ``check(step, fault_mask=, step_time=, checksum_dev=)`` runs the
     heartbeat probe and folds in the caller-measured step time and
-    checksum divergence (the train step's ``telemetry=True`` metrics)."""
+    checksum divergence (the train step's ``telemetry=True`` metrics).
+    The probe's failures and the step time are reduced in one
+    ``all_reduce`` MAX, so over ranks every rank's report is the same: the
+    global bitmap and the slowest rank's step time (what
+    :class:`StragglerDetector` observes).  :meth:`clock` is the agreed
+    time source for the recovery controller."""
 
     def __init__(self, fabric_or_device, spec_or_runtime,
                  straggler: StragglerDetector | None = None,
                  checksum_tol: float = 1e-3):
         fabric = fabric_or_device
-        if not isinstance(fabric, StackedFabric):
+        if not isinstance(fabric, _BlockFabric):
             n = (spec_or_runtime.graph.n
                  if hasattr(spec_or_runtime, "entries")
                  else spec_or_runtime.n)
             fabric = StackedFabric(n, fabric_or_device)
         self.fabric = fabric
-        self.probe, self.plan = fabric_link_probe(fabric, spec_or_runtime)
+        self.plan = compile_link_probe(spec_or_runtime)
+        self._failures = _probe_failures(fabric, self.plan)
         self.straggler = straggler or StragglerDetector()
         self.checksum_tol = float(checksum_tol)
 
@@ -298,9 +348,26 @@ class HealthMonitor:
     def links(self) -> tuple:
         return self.plan.links
 
+    def probe(self, fault_mask=None) -> np.ndarray:
+        """The global ``(L,)`` link-OK bitmap (see
+        :func:`fabric_link_probe`)."""
+        return _agreed_probe(self.fabric, self._failures(fault_mask))[0]
+
+    def clock(self) -> float:
+        """``time.monotonic()``, the same on every rank: the latest rank's
+        reading (one ``all_reduce`` MAX; on the stacked fabric this
+        process's own).  Over ranks, the recovery controller's ``clock``,
+        so its journal's times agree."""
+        t = torch.tensor([time.monotonic()], dtype=torch.float64,
+                         device=self.fabric.device)
+        return float(self.fabric.all_reduce(t, dist.ReduceOp.MAX).item())
+
     def check(self, step: int, fault_mask=None, step_time: float | None = None,
               checksum_dev: float = 0.0) -> HealthReport:
-        bitmap = self.probe(fault_mask)
+        bitmap, (slowest,) = _agreed_probe(
+            self.fabric, self._failures(fault_mask),
+            -1.0 if step_time is None else float(step_time))
+        step_time = None if step_time is None else float(slowest)
         slow = (step_time is not None
                 and self.straggler.observe(float(step_time)))
         report = HealthReport(step=step, links=self.plan.links,

@@ -40,6 +40,20 @@ The escalation ladder (most transitions are per-cause):
      (``on_rescale`` -> new mesh + runtime), replacing the bare
      ``NoScheduleError`` the runtime alone would raise.
 
+**Over ranks** each rank runs its own controller, and the ranks must
+still take the same decision at the same tick (otherwise one runs entry 0
+while another runs a degraded entry, and the waves deadlock or sum
+garbage).  So every input a decision reads is agreed before it: the
+probe's bitmap and the step time come agreed in the report
+(:class:`repro_torch.dist.health.HealthMonitor` reduces them in one
+``all_reduce``), the controller's ``clock`` is the monitor's agreed one
+(:meth:`~repro_torch.dist.health.HealthMonitor.clock`, the latest rank's
+reading), the checksum spread is global, and a finished background
+rebuild is adopted only at a tick where ``agree`` (the fabric's
+``all_true``: one ``all_reduce`` MIN) says every rank's thread has
+finished.  The rebuild thread itself issues no collective.  The journal
+rows, ticks and times included, are then the same on every rank.
+
 Every transition appends a :class:`JournalEntry` (cause, action,
 schedule ids, steps degraded, wall-clock MTTR).  The journal is
 *replayable*: :func:`replay_journal` recomputes the final (generation,
@@ -169,12 +183,17 @@ class RecoveryController:
     no rescale callback a node loss parks the controller in ``stall``
     and journals ``rescale`` as required-but-unavailable, so training loops
     without elasticity degrade to a loud no-progress state instead of an
-    unhandled exception."""
+    unhandled exception.
+
+    ``agree(flag) -> bool`` (default: the flag itself) is whether a local
+    flag holds on every rank; over ranks pass the fabric's ``all_true``
+    (see the module docstring), and ``clock`` an agreed one."""
 
     def __init__(self, runtime, policy: RecoveryPolicy | None = None,
                  on_checkpoint=None, on_rescale=None, clock=time.monotonic,
-                 journal_path=None):
+                 journal_path=None, agree=None):
         self.runtime = runtime
+        self.agree = agree
         self.policy = policy or RecoveryPolicy()
         self.on_checkpoint = on_checkpoint
         self.on_rescale = on_rescale
@@ -339,8 +358,13 @@ class RecoveryController:
         if box is None:
             return None
         th = box["thread"]
-        if th is not None and th.is_alive():
+        done = th is None or not th.is_alive()
+        if self.agree is not None:
+            done = self.agree(done)     # every rank's thread has finished
+        if not done:
             return self._stall_decision(step)
+        if th is not None:
+            th.join()
         self._rebuild = None
         if box["error"] is not None:
             raise NoScheduleError(

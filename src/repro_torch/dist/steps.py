@@ -59,7 +59,7 @@ from ..core.edst_star import star_edsts
 from ..optim.adamw import tree_leaves
 from ..optim.sharded import ShardedAdamW, ShardedOptState, decay_mask
 from .fabric import (ProcessGroupFabric, StackedFabric, gather_blocks,
-                     stacked_only, vertex_blocks, world_size)
+                     vertex_blocks, world_size)
 from .fault import FaultAwareAllreduce
 from .health import payload_checksum, replication_divergence
 from .striped import (owner_stripes, rs_conservation_gap, tree_allgather,
@@ -256,16 +256,21 @@ def make_train_step(api, opt, mesh_shape, axis_names, mode: str = "edst",
     equals the stacked step bit for bit; ``psum_dp`` and ``gspmd``
     associate the gradient's sum over the ranks otherwise, and agree with
     it within f32 rounding.  ``zero1``, ``fault_runtime`` and
-    ``telemetry`` run on one rank only (a world size above 1 raises,
-    :func:`~repro_torch.dist.fabric.stacked_only`).
+    ``telemetry`` run over the ranks too, bit for bit with the stacked
+    step: each rank holds the optimizer state of its own vertices, the
+    clip norm and the telemetry's sums are taken over per-vertex values
+    gathered in vertex order, and every rank must pass the same
+    ``schedule_id``.
 
     ``zero1=True`` (``mode="edst"``, striped engine) is the ZeRO-1 step:
     the gradients are ``tree_reduce_scatter``'d onto owner stripes,
     :class:`repro_torch.optim.sharded.ShardedAdamW` updates the params in
     the scattered domain (the clip norm a sum of per-vertex partial
     sums), and only the updated params are ``tree_allgather``'d back.
-    ``opt_state`` is then a :class:`ShardedOptState` (build it with
-    ``ShardedAdamW(opt).init_for(params, spec_or_runtime, n)``).
+    ``opt_state`` is then a :class:`ShardedOptState` of the rank's own
+    vertices (build it with ``ShardedAdamW(opt).init_for(params,
+    spec_or_runtime, n, fabric=...)``, the fabric of the rank's block;
+    stacked, all n).
 
     ``fault_runtime`` (a :class:`repro_torch.dist.fault.FaultAwareAllreduce`,
     ``mode="edst"`` only) makes the step failure-event aware: its
@@ -283,7 +288,10 @@ def make_train_step(api, opt, mesh_shape, axis_names, mode: str = "edst",
     bytes, per entry with a fault runtime; 0 for ``psum_dp`` and
     ``gspmd``, whose ``sync_dev`` is 0 too: nothing is synchronized by
     hand); for zero1 also ``ag_replicas_equal``: whether every vertex
-    row of the allgathered params equals every other, bit for bit."""
+    row of the allgathered params equals vertex 0's, bit for bit (over
+    ranks vertex 0's row is broadcast and every rank's answer agreed).
+    Over ranks the per-row checksums and partial sums are gathered in
+    vertex order, so ``sync_dev`` is the stacked step's, bit for bit."""
     if mode not in SYNC_MODES:
         raise ValueError(f"mode {mode!r} not in {SYNC_MODES}")
     if fault_runtime is not None and mode != "edst":
@@ -310,8 +318,6 @@ def make_train_step(api, opt, mesh_shape, axis_names, mode: str = "edst",
     pg = group is not None or world_size() > 1
     world = dist.get_world_size(group) if pg else 1
     rank = dist.get_rank(group) if pg else 0
-    stacked_only({"zero1": zero1, "fault_runtime": fault_runtime is not None,
-                  "telemetry": telemetry}, world)
     if mode == "gspmd":
         counts = [1] * world
         lo, hi = rank, rank + 1
@@ -340,8 +346,8 @@ def make_train_step(api, opt, mesh_shape, axis_names, mode: str = "edst",
                     return tree_reduce_scatter(g, spec, fabric,
                                                quantize=quantize, codec=codec)
 
-                def z_sl(vec, sid):
-                    return owner_stripes(vec, spec)
+                def z_sl(vec, sid, fabric):
+                    return owner_stripes(vec, spec, fabric=fabric)
 
                 def z_ag(owned, sid, shape, fabric):
                     return tree_allgather(owned, spec, fabric, shape)
@@ -430,7 +436,7 @@ def make_train_step(api, opt, mesh_shape, axis_names, mode: str = "edst",
             if telemetry:
                 size = rows[0].numel()
                 tel = {"sync_dev": float(replication_divergence(
-                    payload_checksum(rows))),
+                    fabric.gather(payload_checksum(rows)))),
                     "sync_wire_bytes": wire_gauge(
                         size * rows.element_size(), rows.element_size(),
                         sid)}
@@ -454,6 +460,14 @@ def make_train_step(api, opt, mesh_shape, axis_names, mode: str = "edst",
 
     sopt = ShardedAdamW(opt)
 
+    def replicas_equal(rows, fabric) -> bool:
+        """Whether every local row equals vertex 0's bit for bit, on every
+        rank: vertex 0's row is broadcast from its rank, and the ranks'
+        answers are agreed by one ``all_reduce`` MIN."""
+        ref = rows[0] if fabric.owns(0) else torch.empty_like(rows[0])
+        ref = fabric.broadcast(ref, 0)
+        return fabric.all_true(all(torch.equal(r, ref) for r in rows))
+
     def zero1_step(params, opt_state, batch, sid):
         grads, loss, aux = local_grads(params, batch)
         fabric = fabric_on(grads.device)
@@ -461,7 +475,7 @@ def make_train_step(api, opt, mesh_shape, axis_names, mode: str = "edst",
         tel = {}
         if telemetry:
             tel["sync_dev"] = float(rs_conservation_gap(
-                grads.float().sum(1) / n, owned_g))
+                grads.float().sum(1) / n, owned_g, fabric))
             tel["sync_wire_bytes"] = wire_gauge(
                 grads[0].numel() * grads.element_size(),
                 grads.element_size(), sid)
@@ -470,10 +484,12 @@ def make_train_step(api, opt, mesh_shape, axis_names, mode: str = "edst",
         dev = flat_p.device
         if dev not in decay:
             decay[dev] = decay_mask(params, opt.weight_decay)
-        owned_p = z_sl(flat_p, sid)
-        owned_d = z_sl(decay[dev], sid)
+        owned_p = z_sl(flat_p, sid, fabric)
+        owned_d = z_sl(decay[dev], sid, fabric)
         step = opt_state.step + 1
-        gnorm = torch.sqrt(sopt.partial_sumsq(owned_g).sum())
+        # the n per-vertex partial sums in vertex order, summed as one
+        # tensor: the stacked step's norm, bit for bit
+        gnorm = torch.sqrt(fabric.gather(sopt.partial_sumsq(owned_g)).sum())
         new_op, mu, nu, lr = sopt.update_stripes(
             owned_p, owned_g, owned_d, opt_state.mu, opt_state.nu, step,
             gnorm)
@@ -481,8 +497,7 @@ def make_train_step(api, opt, mesh_shape, axis_names, mode: str = "edst",
         rows = z_ag(new_op, sid, flat_p.shape, fabric)
         del new_op
         if telemetry:
-            tel["ag_replicas_equal"] = all(
-                torch.equal(rows[v], rows[0]) for v in range(1, n))
+            tel["ag_replicas_equal"] = replicas_equal(rows, fabric)
             tel["sync_grad_norm"] = float(gnorm)
             tel["sync_schedule_id"] = sid
         new_flat = rows[0].clone()

@@ -142,8 +142,9 @@ def _cut_own(state, spec, bound, fabric):
 
 def tree_reduce_scatter(x, spec: StripedCollectiveSpec, fabric,
                         fractions=None, quantize: bool = False, codec=None):
-    """Reduce-scatter over the stacked vertices of ``x`` (``(n, ...)``):
-    returns the ``(n, k, smax)`` stack of every vertex's owner stripes,
+    """Reduce-scatter over the fabric's local vertex rows of ``x``
+    (``(rows, ...)``; all n on the stacked fabric): returns the ``(rows,
+    k, smax)`` stack of every local vertex's owner stripes,
     each row the globally-summed stripe of one tree's chunk, zero-padded
     to the widest stripe.  Stripe geometry (offset/width per tree) comes
     from :func:`stripe_layout`."""
@@ -167,22 +168,25 @@ def stripe_slices(x, spec: StripedCollectiveSpec, fabric, fractions=None):
                     fabric)
 
 
-def owner_stripes(vec, spec: StripedCollectiveSpec, fractions=None):
-    """Every vertex's ``(k, smax)`` owner stripes of ONE replicated flat
-    vector ``vec`` (``(P,)``), stacked ``(n, k, smax)``:
-    :func:`stripe_slices` of ``vec`` expanded to n equal rows, cut
-    straight from the one copy (stripe ``(v, j)`` starts at tree j's
-    chunk offset plus ``own_off[j, v]``; past the chunk's true width it
-    is zero) without building the ``(n, P)`` rows."""
+def owner_stripes(vec, spec: StripedCollectiveSpec, fractions=None,
+                  fabric=None):
+    """The ``(k, smax)`` owner stripes of ONE replicated flat vector
+    ``vec`` (``(P,)``) of every local vertex of ``fabric`` (all n without
+    one), stacked ``(rows, k, smax)``: :func:`stripe_slices` of ``vec``
+    expanded to those rows, cut straight from the one copy (stripe ``(v,
+    j)`` starts at tree j's chunk offset plus ``own_off[j, v]``; past the
+    chunk's true width it is zero) without building the ``(rows, P)``
+    rows.  A process-group rank cuts only its own vertices'."""
     bound = striped_tables(spec, vec.numel(), _normalize(fractions))
-    own = torch.zeros((spec.n, spec.k, bound.smax), dtype=vec.dtype,
+    vertices = range(spec.n) if fabric is None else fabric.vertices
+    own = torch.zeros((len(vertices), spec.k, bound.smax), dtype=vec.dtype,
                       device=vec.device)
     chunk = 0
     for j, s in enumerate(bound.sizes):
-        for v in range(spec.n):
+        for r, v in enumerate(vertices):
             off, length = int(bound.own_off[j, v]), int(bound.own_len[j, v])
             width = max(0, min(length, s - off))
-            own[v, j, :width] = vec[chunk + off:chunk + off + width]
+            own[r, j, :width] = vec[chunk + off:chunk + off + width]
         chunk += s
     return own
 
@@ -190,8 +194,9 @@ def owner_stripes(vec, spec: StripedCollectiveSpec, fractions=None):
 def tree_allgather(owned, spec: StripedCollectiveSpec, fabric, shape,
                    fractions=None, quantize: bool = False, codec=None):
     """Allgather of owner stripes: the inverse of
-    :func:`tree_reduce_scatter`.  ``owned`` is the ``(n, k, smax)`` stack
-    of every vertex's stripes; returns ``(n, *shape)``, every row the full
+    :func:`tree_reduce_scatter`.  ``owned`` is the ``(rows, k, smax)``
+    stack of every local vertex's stripes; returns ``(rows, *shape)``,
+    every row the full
     ``shape``-d array (every stripe of every tree)."""
     if spec.k == 0:
         return owned
@@ -244,17 +249,25 @@ def stripe_layout(spec: StripedCollectiveSpec, size: int, fractions=None):
     return striped_tables(spec, size, _normalize(fractions))
 
 
-def rs_conservation_gap(flat_reduced, owned):
+def rs_conservation_gap(flat_reduced, owned, fabric=None):
     """Integrity check for the scattered domain: after a reduce-scatter the
     owner stripes across the fabric partition the reduced vector, so the
     sum of every vertex's owned elements equals the sum of every vertex's
     (mean-contribution) payload.  Returns the RELATIVE gap
     ``|sum(owned) - sum(reduced)| / (|sum(reduced)| + 1)`` -- float
     reassociation noise when healthy, O(magnitude) when a wire corrupted,
-    duplicated or dropped a stripe.  ``flat_reduced`` is ``(n, ...)``,
-    every vertex's contribution ALREADY divided by the fabric size;
-    ``owned`` the ``(n, k, smax)`` stripes.  The reference's two scalar
-    ``psum``\\ s are the sums over the vertex dimension."""
-    a = flat_reduced.to(torch.float32).sum()
-    b = owned.to(torch.float32).sum()
+    duplicated or dropped a stripe.  ``flat_reduced`` is ``(rows, ...)``,
+    every local vertex's contribution ALREADY divided by the fabric size;
+    ``owned`` the ``(rows, k, smax)`` stripes.  The reference's two
+    scalar ``psum``\\ s are the sums over the vertex dimension: each row's
+    two partial sums are gathered in vertex order (``fabric.gather``) and
+    summed as one tensor, so the value is the same however the rows are
+    spread over the ranks."""
+    rows = owned.shape[0]
+    part = torch.stack([flat_reduced.to(torch.float32).reshape(rows, -1)
+                        .sum(1),
+                        owned.to(torch.float32).reshape(rows, -1).sum(1)], 1)
+    if fabric is not None:
+        part = fabric.gather(part)
+    a, b = part.sum(0)
     return (b - a).abs() / (a.abs() + 1.0)

@@ -436,7 +436,10 @@ def chaos_loop(device, cfg, batch_size: int, seq: int, ckpt_dir: str,
             "step_seconds": step_seconds, "ticks": CHAOS_TICKS}
 
 
-def main(argv=None):
+def main(argv=None, cfg=None):
+    """The elastic CLI; ``cfg`` (from Python only, e.g. a depth-cut
+    config, as ``launch/train.py``'s ``main`` takes) replaces ``--arch``
+    (and ``--reduced``) as the template of the restored state."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--arch", default="smollm-135m")
@@ -472,9 +475,10 @@ def main(argv=None):
     if args.ckpt_dir is None:
         ap.error("--ckpt-dir is required unless --failure-drill")
     device = resolve_device(args.device)
-    cfg = configs.get(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
+    if cfg is None:
+        cfg = configs.get(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced()
     dims, names = parse_mesh(args.to_mesh)
     opt = AdamW(cosine_schedule(3e-4, 10, 100))
     params, opt_state, step = reshard_checkpoint(build(cfg), opt,

@@ -1,9 +1,8 @@
 """End-to-end training entry point of the port: config -> model (through
 ``models.api.build``: every token family, ``lm``, ``moe``, ``rglru`` and
 ``rwkv6``) -> data-parallel train step (``edst`` or ``psum_dp`` gradient
-sync over a stacked fabric, ``gspmd``'s one whole-batch gradient, or
-ZeRO-1) -> deterministic data stream -> checkpoint / restart -> fault
-loop.
+sync over a fabric, ``gspmd``'s one whole-batch gradient, or ZeRO-1) ->
+deterministic data stream -> checkpoint / restart -> fault loop.
 
 The data stream yields tokens only, so the ``encdec`` and ``vlm``
 families (which also need frames or patches) are refused before anything
@@ -36,9 +35,15 @@ data-parallel vertices over the ranks, a contiguous block each
 (:class:`~repro_torch.dist.fabric.ProcessGroupFabric`): the process group
 comes from the environment, NCCL with ``cuda:LOCAL_RANK`` for ``--device
 cuda`` and gloo for ``--device cpu``, and rank 0 alone logs and writes
-the metrics, traces and checkpoints.  A world size above the data extent,
-a ``model`` axis above 1, and ``--zero1``, ``--recover`` and
-``--trace-out`` above one rank are refused before anything is built.
+the metrics, traces, the journal and the dense checkpoints.  Under
+``--zero1`` each rank holds the moments of its own vertices and writes
+their shards of the checkpoint (rank 0 the params and the manifest), and
+a resume gives each rank its own rows back.  Under ``--recover`` every
+rank runs the probe and its own recovery controller on agreed inputs, so
+all take each decision at the same step.  ``--trace-out`` is a predicted
+trace of the compiled program, written by rank 0.  A world size above the
+data extent and a ``model`` axis above 1 are refused before anything is
+built.
 
     torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
         --reduced --steps 2 --batch 16 --seq 64 --mesh 4,4,1 --device cpu
@@ -62,7 +67,7 @@ from repro_torch.ckpt import (latest_step, restore, restore_sharded,
 from repro_torch.core.collectives import owner_element_map
 from repro_torch.core.device import resolve_device
 from repro_torch.data import SyntheticLMStream
-from repro_torch.dist.fabric import stacked_only
+from repro_torch.dist.fabric import ProcessGroupFabric
 from repro_torch.dist.steps import (ENGINES, dp_extent, edst_spec_for_mesh,
                                     fault_runtime_for_mesh, make_train_step)
 from repro_torch.models.api import build
@@ -166,6 +171,7 @@ class Run:
     monitor: object = None
     controller: object = None
     zspec: object = None         # --zero1: the striped spec
+    fabric: object = None        # under torchrun: this rank's block
     rank: int = 0                # under torchrun: this process's rank
     owns_group: bool = False     # setup initialised it: main destroys it
 
@@ -179,15 +185,13 @@ class Run:
             print(msg, flush=True)
 
     def save(self, step: int, params, opt_state) -> None:
-        if self.rank != 0:      # every rank holds the same state
-            return
-        if self.zspec is not None:
+        if self.zspec is not None:   # each rank its own vertices' shards
             size = sum(p.numel() for p in tree_leaves(params))
             save_sharded_checkpoint(self.args.ckpt_dir, step, params,
                                     opt_state,
                                     owner_element_map(self.zspec, size),
-                                    size)
-        else:
+                                    size, fabric=self.fabric)
+        elif self.rank == 0:         # every rank holds the same state
             save_checkpoint(self.args.ckpt_dir, step,
                             {"p": params, "o": opt_state})
 
@@ -200,7 +204,8 @@ class Run:
         if self.zspec is not None:
             size = sum(p.numel() for p in tree_leaves(params))
             params, opt_state, start, _ = restore_sharded(
-                ckpt, params, owner_element_map(self.zspec, size))
+                ckpt, params, owner_element_map(self.zspec, size),
+                fabric=self.fabric)
         else:
             state, start, _ = restore(ckpt, {"p": params, "o": opt_state})
             params, opt_state = state["p"], state["o"]
@@ -212,10 +217,11 @@ TOKEN_FAMILIES = ("lm", "moe", "rglru", "rwkv6")
 
 
 def dist_setup(args, dims, names):
-    """Under ``torchrun`` (``WORLD_SIZE`` set): refuse what does not
-    spread over ranks, then ``(device, group, rank, initialised here)``
-    with the process group from the environment (or the one already
-    initialised).  Without ``WORLD_SIZE``: ``--device`` and no group."""
+    """Under ``torchrun`` (``WORLD_SIZE`` set): refuse a mesh that does
+    not spread over the ranks, then ``(device, group, rank, initialised
+    here)`` with the process group from the environment (or the one
+    already initialised).  Without ``WORLD_SIZE``: ``--device`` and no
+    group."""
     if "WORLD_SIZE" not in os.environ:
         return resolve_device(args.device), None, 0, False
     world, n = int(os.environ["WORLD_SIZE"]), dp_extent(dims, names)
@@ -227,11 +233,6 @@ def dist_setup(args, dims, names):
         raise SystemExit(f"train: --mesh {args.mesh} has a model axis of "
                          f"{model}; the ranks hold data-parallel vertices "
                          "only")
-    try:
-        stacked_only({"--zero1": args.zero1, "--recover": args.recover,
-                      "--trace-out": args.trace_out}, world)
-    except ValueError as e:
-        raise SystemExit(f"train: {e}") from None
     device = resolve_device(args.device)
     if device.type == "cuda":
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
@@ -268,9 +269,12 @@ def setup(args, cfg=None):
     run = Run(args, device, None, SyntheticLMStream(
         cfg.vocab, args.seq, args.batch, seed=args.seed), rank=rank,
         owns_group=mine)
+    if group is not None and n > 1:
+        run.fabric = ProcessGroupFabric(n, device, group)
     if args.zero1:
         run.zspec = edst_spec_for_mesh(dims, names, engine="striped")
-        opt_state = ShardedAdamW(opt).init_for(params, run.zspec, n)
+        opt_state = ShardedAdamW(opt).init_for(params, run.zspec, n,
+                                               fabric=run.fabric)
     else:
         opt_state = opt.init(params)
     runtime = None
@@ -279,9 +283,11 @@ def setup(args, cfg=None):
         from repro_torch.dist.recovery import RecoveryController
         runtime = fault_runtime_for_mesh(dims, names,
                                          engine=args.edst_engine)
-        run.monitor = HealthMonitor(device, runtime)
-        run.controller = RecoveryController(runtime,
-                                            journal_path=args.journal_out)
+        run.monitor = HealthMonitor(run.fabric or device, runtime)
+        # rank 0 alone writes the journal; every rank keeps it in memory
+        run.controller = RecoveryController(
+            runtime, journal_path=args.journal_out if rank == 0 else None,
+            clock=run.monitor.clock, agree=run.monitor.fabric.all_true)
 
     def remake_step(rt):
         return make_train_step(api, opt, dims, names, mode=args.sync,
@@ -351,7 +357,10 @@ def profiler(device: torch.device):
 def _recover_tick(run: Run, step: int, t1: float, metrics):
     """Feed one step's probe and telemetry to the recovery controller.
     Returns ``None`` to commit the step, ``"redo"`` to discard it and run
-    it again after recovery, or ``"stop"`` on a node loss."""
+    it again after recovery, or ``"stop"`` on a node loss.  Over ranks
+    the monitor agrees the probe, the step time and the clock, and the
+    controller the adoption of a rebuild, so every rank returns the
+    same."""
     from repro_torch.dist.health import HealthMonitor
     ctrl = run.controller
     report = run.monitor.check(
@@ -366,23 +375,23 @@ def _recover_tick(run: Run, step: int, t1: float, metrics):
         mesh = ",".join(map(str, survivor_mesh(
             ctrl.runtime.graph.n - len(nodes))))
         ck = run.args.ckpt_dir or "DIR"
-        print(f"[train] node loss at step {step} ({list(nodes)}); "
-              + ("checkpoint saved" if run.args.ckpt_dir
-                 else "no --ckpt-dir, nothing saved")
-              + " -- relaunch on the surviving vertices: python -m "
-              f"repro_torch.launch.elastic --ckpt-dir {ck} --to-mesh "
-              f"{mesh}, then python -m repro_torch.launch.train --mesh "
-              f"{mesh} --ckpt-dir {ck}")
+        run.log(f"[train] node loss at step {step} ({list(nodes)}); "
+                + ("checkpoint saved" if run.args.ckpt_dir
+                   else "no --ckpt-dir, nothing saved")
+                + " -- relaunch on the surviving vertices: python -m "
+                f"repro_torch.launch.elastic --ckpt-dir {ck} --to-mesh "
+                f"{mesh}, then python -m repro_torch.launch.train --mesh "
+                f"{mesh} --ckpt-dir {ck}")
         return "stop"
     if dec.action == "none":
         return None
     # the step ran over suspect fabric: discard it and redo it after
     # recovery (flip / hot swap / backoff)
-    print(f"[train] step {step}: {dec.action} (schedule {dec.schedule_id}) "
-          f"{dec.detail}")
+    run.log(f"[train] step {step}: {dec.action} (schedule "
+            f"{dec.schedule_id}) {dec.detail}")
     if dec.runtime_changed:
         run.step_fn = run.remake_step(ctrl.runtime)
-        run.monitor = HealthMonitor(run.device, ctrl.runtime,
+        run.monitor = HealthMonitor(run.monitor.fabric, ctrl.runtime,
                                     straggler=run.monitor.straggler)
     if dec.backoff_s:
         time.sleep(dec.backoff_s)
@@ -411,7 +420,7 @@ def main(argv=None, keep_first_step: bool = False,
                  "would read every step's checksum spread as corruption")
     run, params, opt_state = setup(args, cfg)
     try:
-        if args.trace_out:
+        if args.trace_out and run.rank == 0:
             write_sync_trace(args, run, params)
         params, opt_state, start = run.resume(params, opt_state)
         ctrl = run.controller
@@ -472,9 +481,10 @@ def main(argv=None, keep_first_step: bool = False,
             tmetrics.REGISTRY.dump_json(args.metrics_out)
             print(f"[train] metrics -> {args.metrics_out}")
         if ctrl is not None and ctrl.journal:
-            print(f"[train] recovery journal ({len(ctrl.journal)} entries):")
+            run.log(f"[train] recovery journal ({len(ctrl.journal)} "
+                    "entries):")
             for row in ctrl.journal_rows():
-                print(f"[train]   {json.dumps(row)}")
+                run.log(f"[train]   {json.dumps(row)}")
         if args.ckpt_dir and saved != step:
             run.save(step, params, opt_state)
         if losses:

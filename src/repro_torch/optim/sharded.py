@@ -4,11 +4,14 @@
 :class:`ShardedAdamW` wraps the dense :class:`repro_torch.optim.adamw.AdamW`
 so each vertex holds only its ``(k, smax)`` owner-stripe slice of the
 first and second moments, the stripe geometry of
-:func:`repro_torch.dist.striped.tree_reduce_scatter`.  On the stacked
-fabric the state of all n vertices is one ``(n, kmax, smax)`` tensor,
-row v vertex v's.  A zero1 train step reduce-scatters the gradients,
-updates the params in the scattered domain and allgathers the updated
-params only; the update reproduces the dense optimizer (bit for bit in
+:func:`repro_torch.dist.striped.tree_reduce_scatter`.  A fabric's state is
+one ``(rows, kmax, smax)`` tensor of its local vertices, row ``v - lo``
+vertex v's: all n on the stacked fabric, and over the ranks of a
+process group each rank's own block ``[lo, hi)`` (the reference's
+``owner_stripe_spec`` layout, the leading owner axis split over the data
+ranks), so no rank holds another's moments.  A zero1 train step
+reduce-scatters the gradients, updates the params in the scattered
+domain and allgathers the updated params only; the update reproduces the dense optimizer (bit for bit in
 f32 up to the reassociation of the global norm):
 
   * clipping is a stripe-local partial sum of squares per vertex
@@ -39,9 +42,10 @@ from .adamw import AdamW, tree_leaves
 
 
 class ShardedOptState(NamedTuple):
-    """ZeRO-1 optimizer state.  ``mu`` / ``nu`` are ``(n, kmax, smax)``
-    f32 tensors whose leading dimension is the owner vertex; ``step`` is
-    the count of committed updates."""
+    """ZeRO-1 optimizer state.  ``mu`` / ``nu`` are ``(rows, kmax,
+    smax)`` f32 tensors whose leading dimension is the fabric's local
+    owner vertices (all n on the stacked fabric); ``step`` is the count
+    of committed updates."""
     step: int
     mu: torch.Tensor
     nu: torch.Tensor
@@ -77,7 +81,7 @@ def decay_mask(params, weight_decay: float) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class ShardedAdamW:
-    """Owner-stripe AdamW: the dense optimizer's math on ``(n, kmax,
+    """Owner-stripe AdamW: the dense optimizer's math on ``(rows, kmax,
     smax)`` stripe stacks.  See the module docstring."""
     base: AdamW
 
@@ -89,20 +93,26 @@ class ShardedAdamW:
         return ShardedOptState(0, zeros(), zeros())
 
     def init_for(self, params, spec_or_runtime, ndp: int,
-                 fractions=None) -> ShardedOptState:
+                 fractions=None, fabric=None) -> ShardedOptState:
         """State sized for ``params`` sharded over ``ndp`` owner vertices
         with the stripe geometry of a spec or a fault runtime, on the
-        params' device."""
+        params' device: the rows of ``fabric``'s local vertices (a
+        process-group rank's own block), or all ``ndp`` without one."""
         leaves = tree_leaves(params)
         size = sum(p.numel() for p in leaves)
         kmax, smax = zero1_geometry(spec_or_runtime, size, fractions)
-        return self.init(ndp, kmax, smax, leaves[0].device)
+        if fabric is not None and fabric.n != ndp:
+            raise ValueError(f"fabric of {fabric.n} vertices for {ndp} "
+                             "owner vertices")
+        rows = ndp if fabric is None else fabric.rows
+        return self.init(rows, kmax, smax, leaves[0].device)
 
     @staticmethod
     def partial_sumsq(owned_g) -> torch.Tensor:
-        """Each vertex's contribution to the squared global grad norm,
-        ``(n,)`` (stripe padding is zero and owner stripes partition the
-        payload, so ``sqrt(partial_sumsq(g).sum())`` is the dense norm)."""
+        """Each local vertex's contribution to the squared global grad
+        norm, ``(rows,)`` (stripe padding is zero and owner stripes
+        partition the payload, so the square root of the sum over all n
+        vertices is the dense norm)."""
         g32 = owned_g.float()
         return (g32 * g32).reshape(g32.shape[0], -1).sum(1)
 
@@ -110,7 +120,7 @@ class ShardedAdamW:
     def update_stripes(self, p, g, decay, mu, nu, step: int, gnorm):
         """One AdamW update on every vertex's stripes.
 
-        ``p`` / ``g`` / ``decay`` / ``mu`` / ``nu`` are ``(n, kmax,
+        ``p`` / ``g`` / ``decay`` / ``mu`` / ``nu`` are ``(rows, kmax,
         smax)`` f32 stripe stacks (params, mean grads, decay mask,
         moments); ``step`` is the post-increment count and ``gnorm`` the
         pre-clip global norm.  Returns new tensors

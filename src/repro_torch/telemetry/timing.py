@@ -3,8 +3,9 @@ counterpart of the reference's ``repro.telemetry.timing``).
 
 The production executors run a compiled program's waves back to back, so
 the end-to-end time of an allreduce says nothing about *which* waves
-dominate.  This module re-runs the SAME wave bodies on a
-:class:`~repro_torch.dist.fabric.StackedFabric` -- the pipelined engine's
+dominate.  This module re-runs the SAME wave bodies on a fabric (a
+:class:`~repro_torch.dist.fabric.StackedFabric`, or with ``group=`` a
+:class:`~repro_torch.dist.fabric.ProcessGroupFabric`) -- the pipelined engine's
 S=1 f32 wave (``_select_payload``, ``fabric.ppermute``, ``_apply_wave``,
 whose reduce hops launch the tree-combine kernel through ``_acc``) and the
 striped engine's ``_run_wave`` -- one wave at a time with a synchronize
@@ -32,6 +33,12 @@ timed against its true input, and no copy of the payload outlives the
 waves that need it.  The first pass warms up (kernel loads, the memory pool); the
 best of ``iters`` further passes is kept per wave.
 
+Over the ranks of a group each rank runs the waves on its own block of
+the payload's rows; a barrier precedes every wave, so each wave starts
+together on every rank, and a wave's time is the maximum over the ranks
+(one ``all_reduce`` MAX a pass, after its last wave): every rank returns
+the same times, and rank 0 reports them.
+
 The ``backend`` of a calibration here is the torch device type
 (``"cuda"``, ``"cpu"``), where the reference's is JAX's backend name
 (``"gpu"`` on the same card).  A stacked fabric's "link" is a gather in
@@ -44,12 +51,13 @@ from __future__ import annotations
 import time
 
 import torch
+import torch.distributed as dist
 
 from ..core.collectives import (CostModel, PipelinedAllreduceSpec,
                                 StripedCollectiveSpec, striped_tables,
                                 wave_wire_bytes)
 from ..core.device import resolve_device
-from ..dist.fabric import StackedFabric, stacked_only
+from ..dist.fabric import ProcessGroupFabric, StackedFabric
 from ..dist.striped import _rows_in, _run_wave
 from ..dist.tree_allreduce import (_apply_wave, _row_sizes, _rows_of,
                                    _rows_out, _select_payload)
@@ -65,7 +73,7 @@ def _pipelined_steps(spec, fabric, size: int, fractions):
     sizes, mrow = _row_sizes(size, spec.k, fractions)
 
     def prep(x):
-        return _rows_of(x.reshape(spec.n, -1), sizes, mrow)
+        return _rows_of(x.reshape(fabric.rows, -1), sizes, mrow)
 
     def wave_step(wv):
         def step(rows):
@@ -88,7 +96,7 @@ def _striped_steps(spec, fabric, size: int, fractions):
     bound = striped_tables(spec, size, fr)
 
     def prep(x):
-        return _rows_in(x.reshape(spec.n, -1), bound.sizes, bound.mrow)
+        return _rows_in(x.reshape(fabric.rows, -1), bound.sizes, bound.mrow)
 
     def wave_step(bw):
         def step(state):
@@ -102,10 +110,11 @@ def _striped_steps(spec, fabric, size: int, fractions):
 
 
 def wave_steps(spec, fabric, size: int, fractions=None):
-    """``(prep, wave fns, finish)`` of the spec's program over ``(n,
-    size)`` payloads: ``prep(x)`` builds the state, ``fns[w](state)``
-    runs wave w and returns the next state, ``finish(state)`` returns the
-    ``(n, size)`` sums -- the engine's own result, bit for bit."""
+    """``(prep, wave fns, finish)`` of the spec's program over ``(rows,
+    size)`` payloads of the fabric's local vertices: ``prep(x)`` builds
+    the state, ``fns[w](state)`` runs wave w and returns the next state,
+    ``finish(state)`` returns the ``(rows, size)`` sums -- the engine's
+    own result, bit for bit."""
     if isinstance(spec, StripedCollectiveSpec):
         return _striped_steps(spec, fabric, size, fractions)
     if isinstance(spec, PipelinedAllreduceSpec):
@@ -116,12 +125,12 @@ def wave_steps(spec, fabric, size: int, fractions=None):
         "fused/per-tree baselines")
 
 
-def _timed_pass(prep, fns, payload, cuda: bool):
-    """Run the program once on ``prep(payload())``, a synchronize after
-    every wave; returns ``(device seconds, host seconds)`` per wave
-    (device = host on the CPU).  The payload is made anew for the pass
-    and held by nothing but the state, so it is freed as soon as no wave
-    needs it."""
+def _timed_pass(prep, fns, payload, cuda: bool, fabric):
+    """Run the program once on ``prep(payload())``, a barrier before and a
+    synchronize after every wave; returns ``(device seconds, host
+    seconds)`` per wave (device = host on the CPU).  The payload is made
+    anew for the pass and held by nothing but the state, so it is freed
+    as soon as no wave needs it."""
     state = prep(payload())
     dev, host = [], []
     if cuda:
@@ -129,6 +138,7 @@ def _timed_pass(prep, fns, payload, cuda: bool):
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
     for fn in fns:
+        fabric.barrier()
         t0 = time.perf_counter()
         if cuda:
             start.record()
@@ -144,30 +154,37 @@ def _timed_pass(prep, fns, payload, cuda: bool):
 
 def timed_waves(spec, nbytes: int = DEFAULT_NBYTES,
                 iters: int = DEFAULT_ITERS, fractions=None,
-                device="cuda") -> tuple:
+                device="cuda", group=None) -> tuple:
     """``(device seconds, host seconds)`` per wave of the compiled program,
     each the best of ``iters`` passes after one warm-up pass, run wave by
-    wave on a stacked fabric on ``device`` (see the module docstring).
-    The payload is the reference's: ``arange(n * elems) * 1e-4`` in f32,
-    ``elems = ceil(nbytes / 4)`` a vertex.  Stacked only: it raises under
-    a ``torch.distributed`` group of more than one rank."""
-    stacked_only({"the wave timer": True})
+    wave on a fabric on ``device`` (see the module docstring): stacked,
+    or with ``group`` a process-group fabric of its ranks, each wave's
+    time the maximum over them.  The payload is the reference's:
+    ``arange(n * elems) * 1e-4`` in f32, ``elems = ceil(nbytes / 4)`` a
+    vertex, each rank making its own rows."""
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
     elems = max(1, -(-int(nbytes) // 4))
-    fabric = StackedFabric(spec.n, dev)
+    fabric = StackedFabric(spec.n, dev) if group is None \
+        else ProcessGroupFabric(spec.n, dev, group)
     prep, fns, _ = wave_steps(spec, fabric, elems, fractions)
 
     def payload():
-        return (torch.arange(spec.n * elems, dtype=torch.float32,
-                             device=dev).reshape(spec.n, elems) * 1e-4)
+        return (torch.arange(fabric.lo * elems, fabric.hi * elems,
+                             dtype=torch.float32, device=dev)
+                .reshape(fabric.rows, elems) * 1e-4)
 
     best_dev = [float("inf")] * len(fns)
     best_host = [float("inf")] * len(fns)
     for i in range(max(1, iters) + 1):
-        d, h = _timed_pass(prep, fns, payload, cuda)
+        d, h = _timed_pass(prep, fns, payload, cuda, fabric)
         if i == 0:
             continue                    # warm-up: kernel loads, the pool
+        # the slowest rank's, on every rank (the identity when stacked)
+        t = fabric.all_reduce(torch.tensor(d + h, dtype=torch.float64,
+                                           device=dev),
+                              dist.ReduceOp.MAX).tolist()
+        d, h = t[:len(fns)], t[len(fns):]
         best_dev = [min(a, b) for a, b in zip(best_dev, d)]
         best_host = [min(a, b) for a, b in zip(best_host, h)]
     return tuple(best_dev), tuple(best_host)

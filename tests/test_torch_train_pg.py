@@ -17,9 +17,10 @@ of them).  Every rank must end with the same parameters.  (``gspmd``'s
 move is not compared: on these inputs it differs from ``psum_dp``'s by a
 few f32 roundings of the parameters, 1.5e-5 of its size for the stacked
 ``gspmd`` and 2.0e-5 over the ranks, past the 1e-5 that ``edst`` meets.)
-``--zero1``, ``--recover``, ``--trace-out``, a world size above the
-data extent and a model axis above 1 are refused before anything is
-built.
+A world size above the data extent and a model axis above 1 are refused
+before anything is built.  (``--zero1``, ``--recover`` and
+``--trace-out`` run over the ranks: ``tests/test_torch_recover_pg.py``
+and ``tests/test_torch_zero1_pg.py`` hold them to the stacked run.)
 """
 import os
 
@@ -41,10 +42,7 @@ MESHES = {"4,4,1": (4, 4, 1), "2,2,1": (2, 2, 1)}
 NAMES = ("pod", "data", "model")
 RUNS = {(mesh, sync): ["--mesh", mesh, "--sync", sync]
         for mesh in MESHES for sync in ("edst", "psum_dp", "gspmd")}
-REFUSED = {"--zero1": ["--mesh", "4,4,1", "--zero1"],
-           "--recover": ["--mesh", "4,4,1", "--sync", "edst", "--recover"],
-           "--trace-out": ["--mesh", "4,4,1", "--trace-out", "t.json"],
-           "data extent": ["--mesh", "2,1"],
+REFUSED = {"data extent": ["--mesh", "2,1"],
            "model axis": ["--mesh", "2,2,2"]}
 
 
@@ -188,5 +186,5 @@ def test_refused_over_ranks(ranks, what):
     for got in ranks:
         assert what in got, f"{what} was not refused"
         word = {"data extent": "data-parallel extent",
-                "model axis": "model axis"}.get(what, what)
+                "model axis": "model axis"}[what]
         assert word in got[what], got[what]
