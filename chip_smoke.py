@@ -13,7 +13,8 @@ the CUDA cores, at recurrentgemma-2b's; beside SDPA, and at the causal
 ones without a window also SDPA's is_causal form); sums a
 full-size stacked gradient with every EDST engine (per-tree, fused,
 pipelined at 1 and 4 segments, striped; 4x4 torus f32 and int8, ring 16
-int8); trains the full-width smollm-135m data-parallel over the 16
+int8); trains the full-width smollm-135m (10 of its 30 layers)
+data-parallel over the 16
 vertices of the 4x4 torus (edst with each engine, edst + int8 wire,
 psum_dp, and one profiled edst step whose trace it splits into the
 sync's waves) and of the ring 16 (edst + int8 wire, the fabric whose
@@ -56,10 +57,16 @@ fabric: the torus allreduce (pipelined and striped, f32 and int8), the
 edst training (its warm step timed stacked, NCCL, NCCL, stacked), ZeRO-1
 (f32 and int8), the fault runtime's flip with reshard_owned, the sharded
 checkpoint resumed, the recovery loop and the wave timer over a world-1
-NCCL group, each bit for bit with the stacked fabric's run, GPipe over
-smollm-135m's layers on both fabrics, and the reduced training (edst and
-zero1) and a masked probe's flip over 4 gloo ranks on the host
-(multi-rank NCCL where the machine has two or more cards).  Beside
+NCCL group, each bit for bit with the stacked fabric's run, gspmd with
+every parameter a DTensor on the group's (1, 1) data x model mesh held
+to a stacked gspmd run (its warm step, the program analyser's per-device
+counts of that step, its roofline terms and measured roofline share),
+GPipe over smollm-135m's layers on both fabrics, and the reduced training
+(edst and zero1) and a masked probe's flip over 4 gloo ranks on the host
+(multi-rank NCCL where the machine has two or more cards).  Beside the
+card's phases, one subprocess dry-runs smollm-135m's train_4k cell on a
+fake 16 x 16 group of 256 ranks on the host (``repro_torch.launch.dryrun``:
+it must exit 0, fit in 80 GB and issue collectives).  Beside
 WKV6's row it logs where the kernel's time goes ("wkv6 parts": copies
 with one part of its chunk loop compiled out, and mma.sync TF32 alone).
 Every failed check raises, so the exit code is non-zero and no result
@@ -1444,10 +1451,27 @@ def trace_split(path, waves):
             "device_events": len(device)}
 
 
+# phase_train's and phase_fabric's smollm-135m training depth: full width,
+# 10 of its 30 layers.  At all 30 the smoke read 1132.8 s of the 1200 s
+# limit (PERF.md) before the gspmd DTensor runs and the dry run were added;
+# every check of both phases is kept
+TRAIN_LAYERS = 10
+
+
+def train_cfg():
+    """smollm-135m (remat on, as in the full config) cut to
+    ``TRAIN_LAYERS`` layers."""
+    import dataclasses
+    from repro_torch import configs
+    return dataclasses.replace(configs.get("smollm-135m"),
+                               n_layers=TRAIN_LAYERS)
+
+
 def phase_train(dev):
-    """Full-width smollm-135m through the training entry point, one run
-    per path.  Every launch counter is set to 0 just before each run and
-    read just after it; returns ``{run: {kernel: launches}}``."""
+    """Full-width smollm-135m (``TRAIN_LAYERS`` deep) through the training
+    entry point, one run per path.  Every launch counter is set to 0 just
+    before each run and read just after it; returns ``{run: {kernel:
+    launches}}``."""
     import torch
     from repro_torch.launch import train
     base = ["--arch", "smollm-135m", "--batch", "32", "--seq", "256",
@@ -1458,7 +1482,8 @@ def phase_train(dev):
     def run(tag, extra, keep=False):
         reset_all()
         t0 = time.perf_counter()
-        res = train.main(base + extra, keep_first_step=keep)
+        res = train.main(base + extra, keep_first_step=keep,
+                         cfg=train_cfg())
         torch.cuda.synchronize()
         per_run[tag] = counts()
         dt = time.perf_counter() - t0
@@ -1783,18 +1808,179 @@ def abba_turns(argv, abba):
     from repro_torch.launch import train
     torchrun_env(0, 1)
     try:
-        abba["nccl-1"].append(train.main(argv).step_seconds[1])
+        abba["nccl-1"].append(train.main(argv,
+                                         cfg=train_cfg()).step_seconds[1])
     finally:
         for key in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
             os.environ.pop(key)
     torch.cuda.empty_cache()
-    abba["stacked"].append(train.main(argv).step_seconds[1])
+    abba["stacked"].append(train.main(argv, cfg=train_cfg()).step_seconds[1])
     torch.cuda.empty_cache()
     a, b = abba["stacked"], abba["nccl-1"]
     log(f"fabric nccl-1 train edst torus4x4 warm s/step in the order "
         f"stacked, NCCL, NCCL, stacked: {a[0]!r}, {b[0]!r}, {b[1]!r}, "
         f"{a[1]!r}; pair means stacked {sum(a) / 2!r}, world-1 NCCL "
         f"{sum(b) / 2!r} ({sum(b) / sum(a):.4f}x)")
+
+
+GSPMD_TRAIN = ["--arch", "smollm-135m", "--batch", "32", "--seq", "256",
+               "--mesh", "1,1", "--sync", "gspmd", "--steps", "2",
+               "--log-every", "1"]
+
+
+def fabric_gspmd(dev, per_run):
+    """``--sync gspmd`` over the world-1 NCCL group: ``train.main`` under
+    torchrun's environment places every parameter of smollm-135m (full
+    width, ``TRAIN_LAYERS`` deep) as a DTensor on the group's (1, 1) data x
+    model mesh; held to a stacked gspmd run of the same seed (bit for bit
+    expected; the grad norms within 1e-6 and the first step's move within
+    1e-5 of its size at least), its peak within ``FABRIC_PEAK_SLACK`` of
+    the stacked run's.  Then one warm step of the same run timed, the
+    program analyser's per-device counts of the next step, the roofline
+    terms of those counts and the measured roofline share (model FLOPs
+    over the bf16 peak, over the warm step)."""
+    import os
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.analysis.hlo import ProgramRecorder
+    from repro_torch.analysis.roofline import (PEAK_FLOPS, model_flops_for,
+                                               roofline)
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import train
+    argv = GSPMD_TRAIN + ["--device", dev.type]
+    cfg = train_cfg()
+    torch.cuda.reset_peak_memory_stats()
+    ref = train.main(argv, keep_first_step=True, cfg=cfg)
+    ref_peak = torch.cuda.max_memory_allocated()
+    ref_p0, ref_p1 = flat_of(ref.init_params).cpu(), \
+        flat_of(ref.first_step_params).cpu()
+    ref_params, ref_losses, ref_gn = flat_of(ref.params).cpu(), \
+        ref.losses, ref.grad_norms
+    ref_secs = ref.step_seconds
+    del ref
+    torch.cuda.empty_cache()
+    torchrun_env(0, 1)
+    try:
+        reset_all()
+        torch.cuda.reset_peak_memory_stats()
+        res = train.main(argv, keep_first_step=True, cfg=cfg)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        tag = "fabric nccl-1 train gspmd dtensor"
+        per_run[tag] = c = counts()
+        equal = res.losses == ref_losses and torch.equal(
+            flat_of(res.params).cpu(), ref_params)
+        gn = max(abs(a - b) / b for a, b in zip(res.grad_norms, ref_gn))
+        d_ref = ref_p1 - ref_p0
+        move = float((flat_of(res.first_step_params).cpu()
+                      - flat_of(res.init_params).cpu() - d_ref).norm()
+                     / d_ref.norm())
+        log(f"{tag} (smollm-135m, {TRAIN_LAYERS} layers, 32 x 256, (1, 1) "
+            f"mesh): losses {res.losses} (stacked {ref_losses}), grad "
+            f"norms {res.grad_norms} (stacked {ref_gn}, relative {gn!r}), "
+            f"first move off the stacked one by {move!r} of its size, "
+            f"losses and parameters equal {equal}; s/step "
+            f"{res.step_seconds} (stacked {ref_secs}); peak "
+            f"{peak / 1e9:.4f} GB (stacked "
+            f"{ref_peak / 1e9:.4f} GB), launches {c}")
+        assert gn <= 1e-6, (tag, gn)
+        assert equal or move <= 1e-5, (tag, move)
+        assert peak <= ref_peak + FABRIC_PEAK_SLACK, (tag, peak, ref_peak)
+        del res
+        torch.cuda.empty_cache()
+
+        # the warm step and the analyser's counts of the next one
+        run, params, opt_state = train.setup(train.parser().parse_args(argv),
+                                             cfg)
+        leaves = train.tree_leaves(params)
+        assert all(isinstance(p, DTensor) for p in leaves)
+        mesh = leaves[0].device_mesh
+        assert tuple(mesh.shape) == (1, 1), mesh
+        params, opt_state, _ = run.step_fn(params, opt_state, run.batch(0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, met = run.step_fn(params, opt_state, run.batch(1))
+        float(met["loss"])
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        with ProgramRecorder() as rec:
+            run.step_fn(params, opt_state, run.batch(2))
+            torch.cuda.synchronize()
+        del params, opt_state, run
+        st = rec.stats
+        shape = ShapeSpec("smoke", 256, 32, "train")
+        terms = roofline(cfg, shape, "1x1", 1, st.dot_flops,
+                         st.bytes_touched, st.total_collective_bytes)
+        mflops = model_flops_for(cfg, shape, 1)
+        share = mflops / PEAK_FLOPS / warm
+        log(f"{tag} warm step {warm!r} s; analyser per device: dot flops "
+            f"{st.dot_flops!r}, bytes touched {st.bytes_touched!r}, "
+            f"collective bytes {st.collective_bytes} counts "
+            f"{st.collective_counts}; roofline terms: compute "
+            f"{terms.compute_s!r} s, memory {terms.memory_s!r} s, "
+            f"collective {terms.collective_s!r} s ({terms.dominant}-bound, "
+            f"bound {terms.bound_s!r} s); model flops {mflops!r}, "
+            f"measured roofline share model_flops / 989e12 / step "
+            f"{share!r} ({share:.2%})")
+        assert st.dot_flops > 0 and math.isfinite(warm)
+    finally:
+        for key in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
+            os.environ.pop(key)
+    torch.cuda.empty_cache()
+
+
+DRYRUN_CELL = ["--arch", "smollm-135m", "--shape", "train_4k"]
+
+
+def start_dryrun():
+    """One host subprocess: ``repro_torch.launch.dryrun`` of smollm-135m's
+    train_4k cell on a fake 16 x 16 group (CPU only: it sees no card).
+    Returns ``(process, start, out file, end box)``; a thread stamps the
+    end, so its seconds are its own wherever it is collected."""
+    import os
+    import threading
+    out = ROOT / "build" / "dryrun_smoke.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun"] + DRYRUN_CELL
+        + ["--out", str(out)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    end = []
+    threading.Thread(target=lambda: (proc.wait(),
+                                     end.append(time.perf_counter())),
+                     daemon=True).start()
+    return proc, t0, out, end
+
+
+def finish_dryrun(started):
+    """Wait for :func:`start_dryrun`'s subprocess (600 s at most) and hold
+    its cell: exit code 0, peak within 80 GB, collectives issued."""
+    proc, t0, out, end = started
+    try:
+        text, _ = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        text, _ = proc.communicate()
+        raise AssertionError(("dry run did not end in 600 s", text[-3000:]))
+    secs = (end[0] if end else time.perf_counter()) - t0
+    lines = [ln for ln in text.splitlines() if ln.startswith(("[dryrun]",
+                                                              "  "))]
+    log("dryrun subprocess: " + " | ".join(lines))
+    assert proc.returncode == 0, ("dry run failed", text[-3000:])
+    cell = json.loads(out.read_text())[0]
+    mem, coll = cell["memory"], cell["collectives"]
+    log(f"dryrun smollm-135m train_4k on a fake 16x16 group: {secs!r} s "
+        f"(trace {cell['trace_s']} s), peak {mem['peak_bytes'] / 1e9:.3f} "
+        f"GB a device (fits {cell['fits']}), dot flops {cell['flops']!r}, "
+        f"collective counts {coll['counts']}, bytes {coll['total_bytes']!r}"
+        f", roofline {cell['roofline']}")
+    assert cell["fits"] and mem["peak_bytes"] <= 80e9, mem
+    assert sum(coll["counts"].values()) > 0, coll
+    out.unlink(missing_ok=True)
+    return secs
 
 
 def fabric_zero1(dev, per_run):
@@ -2103,7 +2289,7 @@ def phase_fabric(dev):
                                        "--device", dev.type]
                 assert "WORLD_SIZE" not in os.environ
                 torch.cuda.reset_peak_memory_stats()
-                ref = train.main(argv)
+                ref = train.main(argv, cfg=train_cfg())
                 ref_peak = torch.cuda.max_memory_allocated()
                 # the stacked parameters wait on the host, out of the
                 # world-1 run's peak
@@ -2116,7 +2302,7 @@ def phase_fabric(dev):
                     reset_all()
                     torch.cuda.reset_peak_memory_stats()
                     t0 = time.perf_counter()
-                    res = train.main(argv)
+                    res = train.main(argv, cfg=train_cfg())
                     torch.cuda.synchronize()
                     t_res = time.perf_counter() - t0
                     peak = torch.cuda.max_memory_allocated()
@@ -2144,6 +2330,11 @@ def phase_fabric(dev):
                 torch.cuda.empty_cache()
                 if sync == "edst":
                     abba_turns(argv, abba)
+
+            # gspmd with DTensor parameters on the group's (1, 1) mesh
+            t0 = time.perf_counter()
+            fabric_gspmd(dev, per_run)
+            log(f"fabric nccl-1 gspmd: {time.perf_counter() - t0!r} s")
 
             # ZeRO-1, the fault runtime, checkpoints, the recovery loop and
             # the wave timer over the group, held to phase_zero1's runs
@@ -3388,6 +3579,8 @@ def main():
         return out
 
     timed_phase("build", phase_build)
+    # the host's dry run beside the card's phases (it uses one CPU core)
+    dryrun = start_dryrun()
     rows = timed_phase("kernels", lambda: phase_kernels(dev) + [
         phase_flash(dev), phase_rglru(dev), phase_wkv6(dev)])
 
@@ -3403,6 +3596,8 @@ def main():
                      # phase's f32 checks, which fill the card to within 1 GB
                      ("fabric", phase_fabric)):
         phases[name] = timed_phase(name, fn, dev)
+    dry_s = timed_phase("dryrun wait", finish_dryrun, dryrun)
+    log(f"dryrun subprocess seconds (beside the card's phases): {dry_s!r}")
     log("seconds by phase: " + ", ".join(f"{k} {v:.1f}"
                                          for k, v in secs.items()))
     per_run = {tag: c for runs in phases.values() for tag, c in runs.items()}

@@ -72,9 +72,10 @@ test mode).  The spec compilers in ``repro_torch.core.collectives``,
 under their ``verify=`` flag, resolved from the ``REPRO_VERIFY_SPECS``
 environment variable (``"cheap"`` by default; the tests set ``full``).
 
-Not ported: the reference's ``hlo_contract_for``, which states what an
-XLA HLO compile of a spec must contain and needs its ``analysis/hlo.py``
-(XLA-specific).  The CLI's ``--trace DIR`` writes each verified spec's
+:func:`hlo_contract_for` states what a correct executor run of a spec
+must issue (the reference's HLO contract, with the reference's
+arithmetic): :func:`repro_torch.analysis.hlo.lint_hlo` holds a recording
+of the run's fabric ``ppermute`` calls to it.  The CLI's ``--trace DIR`` writes each verified spec's
 predicted Perfetto trace into ``DIR`` through
 :mod:`repro_torch.telemetry.trace`, as the reference's does.
 
@@ -100,8 +101,9 @@ from ..core.collectives import (AG_DOWN, AG_UP, BCAST, REDUCE, RS_DOWN,
                                 RS_UP, FusedAllreduceSpec,
                                 PipelinedAllreduceSpec,
                                 StripedCollectiveSpec, _RS_KINDS,
-                                _striped_op)
+                                _striped_op, striped_tables)
 from ..core.graph import canon
+from .hlo import HloContract
 
 ENGINES = ("per_tree", "fused", "pipelined", "striped")
 LEVELS = ("cheap", "full")
@@ -873,6 +875,83 @@ def assert_valid(spec, level: str = "full", context: str = "") -> VerifyReport:
     if not report.ok:
         raise SpecVerificationError(report, context)
     return report
+
+
+# ---------------------------------------------------------------------------
+# contract builder (the lint_hlo side of the verifier)
+# ---------------------------------------------------------------------------
+
+def hlo_contract_for(spec, quantize: bool = False,
+                     m: int | None = None,
+                     phase: str = "composed") -> HloContract:
+    """The HLO contract a correct executor compile of ``spec`` satisfies,
+    enforced by :func:`repro_torch.analysis.hlo.lint_hlo` on a
+    recording of the run's fabric ``ppermute`` calls:
+
+      * exactly one ``collective-permute`` site per wave, *flat in the
+        segment count* (S segments stream through each wave's one site);
+      * quantized programs put at most ``bcast-wave-count`` f32 wire
+        sites in the HLO (reduce wires are int8; broadcast wires are the
+        bit-packed f32 lanes), and every f32 wire is the *packed* width,
+        never a full ``mrow``-element row.
+
+    ``phase`` (striped engine only) selects which program the executor
+    compiled: ``"composed"`` (``striped_allreduce``), ``"rs"`` / ``"ag"``
+    (the standalone reduce-scatter / allgather), or ``"zero1"`` (one
+    zero1 train step: gradient reduce-scatter + param allgather, no
+    composed program) -- the contract under which the zero1 step proves
+    it issues strictly fewer collective waves than the composed
+    allreduce.
+    """
+    engine = engine_of(spec)
+    if phase != "composed" and engine != "striped":
+        raise ValueError(f"phase={phase!r} needs the striped engine; "
+                         f"{engine} compiles only the composed program")
+    ppermutes: int | None
+    max_f32_sites = None
+    max_f32_wire = None
+    if engine == "pipelined":
+        ppermutes = len(spec.q8_waves) if quantize else len(spec.waves)
+        if quantize:
+            max_f32_sites = len(spec.q8_waves) - spec.q8_boundary
+    elif engine == "fused":
+        ppermutes = spec.num_collectives
+        if quantize:
+            max_f32_sites = len(spec.bcast_rounds)
+    elif engine == "per_tree":
+        ppermutes = sum(len(t.reduce_rounds) + len(t.bcast_rounds)
+                        for t in spec.trees)
+        if quantize:
+            max_f32_sites = sum(len(t.bcast_rounds) for t in spec.trees)
+    else:                              # striped: f32 payload sites, and
+        # a ``phase`` choosing the compiled program (see docstring);
+        # binding to a payload size m drops empty-stripe waves exactly
+        # like the executor does
+        bound = striped_tables(spec, m) if m else None
+
+        def _nwaves(name):
+            return len(getattr(bound if m else spec, name))
+
+        if phase == "composed":
+            ppermutes = _nwaves("waves")
+        elif phase == "rs":
+            ppermutes = _nwaves("rs_waves")
+        elif phase == "ag":
+            ppermutes = _nwaves("ag_waves")
+        elif phase == "zero1":
+            ppermutes = _nwaves("rs_waves") + _nwaves("ag_waves")
+        else:
+            raise ValueError(f"phase {phase!r} not in "
+                             "('composed', 'rs', 'ag', 'zero1')")
+        quantize = False
+    if quantize and m is not None and spec.k:
+        mrow = -(-m // spec.k)
+        # the packed broadcast wire is ceil(mrow/4) f32 lanes + 1 scale
+        # lane (+1 headroom for segment padding); a full f32 row (mrow
+        # elements, the codec-off wire) must exceed this cap
+        max_f32_wire = -(-mrow // 4) + 2
+    return HloContract(ppermutes=ppermutes, max_f32_sites=max_f32_sites,
+                       max_f32_wire_elems=max_f32_wire)
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,7 @@ table and kept on the device, so a wave issues no host-to-device copy.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass
 
 import numpy as np
@@ -42,6 +43,48 @@ import torch.distributed as dist
 # the tensors each backend carries: a mismatch raises (nothing is staged
 # through the host, nothing falls back)
 BACKEND_DEVICE = {"nccl": "cuda", "gloo": "cpu"}
+
+
+@dataclass(frozen=True)
+class WireCall:
+    """One ``ppermute`` call: the wave it belongs to (the executor's
+    ``edst/t*/w*/op`` label, ``None`` outside a wave), one vertex's wire
+    dtype and element count, and the bytes of this rank's rows."""
+    wave: str | None
+    dtype: torch.dtype
+    elems: int
+    nbytes: int
+
+
+_WIRE_LOG: list | None = None     # the calls, while a recording runs
+_WAVE: str | None = None          # the wave the executor is in
+
+
+@contextmanager
+def record_wires():
+    """Record every ``ppermute`` call made inside as a :class:`WireCall`
+    into the list yielded (for :mod:`repro_torch.analysis.hlo`)."""
+    global _WIRE_LOG
+    prev, _WIRE_LOG = _WIRE_LOG, []
+    try:
+        yield _WIRE_LOG
+    finally:
+        _WIRE_LOG = prev
+
+
+def recording() -> bool:
+    return _WIRE_LOG is not None
+
+
+@contextmanager
+def in_wave(label: str):
+    """Mark the ``ppermute`` calls made inside as wave ``label``'s."""
+    global _WAVE
+    prev, _WAVE = _WAVE, label
+    try:
+        yield
+    finally:
+        _WAVE = prev
 
 
 def vertex_blocks(n: int, world: int) -> list:
@@ -118,6 +161,10 @@ class _BlockFabric:
             raise ValueError(f"expected {self.rows} vertex rows, got "
                              f"{tuple(x.shape)}")
         self._check_device(x.device)
+        if _WIRE_LOG is not None:
+            _WIRE_LOG.append(WireCall(
+                _WAVE, x.dtype, x[0].numel() if x.shape[0] else 0,
+                x.numel() * x.element_size()))
         out = torch.zeros_like(x)
         if perm:
             plan = self._perm(tuple(perm))

@@ -8,7 +8,11 @@ with ``mode`` choosing how the data-parallel gradients are combined:
 
   * ``"gspmd"``   -- the loss of the whole global batch and its gradient,
     with no manual sync (the reference leaves the sum to XLA's
-    partitioner; one device holds the whole batch here);
+    partitioner): on one device it holds the whole batch; over the ranks
+    the parameters are DTensors on a ``DeviceMesh`` (placed by
+    :mod:`repro_torch.dist.sharding`'s rules: tensor-parallel over
+    ``model``, FSDP over the data axes), the batch is split over the data
+    axes, and DTensor's sharding propagation issues the collectives;
   * ``"psum_dp"`` -- a plain sum over the replicas (the reference's
     ``jax.lax.psum``);
   * ``"edst"``    -- the k-tree allreduce over the paper's
@@ -28,7 +32,8 @@ AdamW, so every rank ends a step with the same parameters.  The flat
 layout is the reference's ``ravel_pytree`` order (sorted keys at every
 level, each leaf in C order), so the EDST chunk rows and their int8
 scales cover the same elements as there.  A ``model`` axis is accepted
-and not replicated: the reference's manual sync modes leave it unused.
+and not replicated by the stacked step: the reference's manual sync modes
+leave it unused.
 ``grad_accum`` splits each vertex's shard (the whole batch under
 ``gspmd``) into that many microbatches, whose mean gradient is the
 shard's.
@@ -218,7 +223,7 @@ def make_train_step(api, opt, mesh_shape, axis_names, mode: str = "edst",
                     segments="auto", zero1: bool = False,
                     fault_runtime: FaultAwareAllreduce | None = None,
                     telemetry: bool = False, codec=None, grad_accum: int = 1,
-                    loss=None, group=None):
+                    loss=None, group=None, fsdp: bool = True):
     """Build the train step of ``api`` (a
     :class:`repro_torch.models.api.ModelAPI`) for a mesh (see the module
     docstring).
@@ -248,14 +253,27 @@ def make_train_step(api, opt, mesh_shape, axis_names, mode: str = "edst",
     when ``torch.distributed`` is initialised with more than one rank)
     runs the step over its ranks: each computes its block of vertices
     (:func:`~repro_torch.dist.fabric.vertex_blocks`), ``edst`` syncs
-    through the engine on a :class:`ProcessGroupFabric`, ``psum_dp``
+    through the engine on a :class:`ProcessGroupFabric`, and ``psum_dp``
     sums its local rows and ``all_reduce``s the sum (the reference's
-    ``psum``), and ``gspmd`` all-reduces the mean of each rank's even
-    share of the batch, as XLA's partition of the reference's step does.
-    The loss and the metrics are gathered in vertex order, so ``edst``
-    equals the stacked step bit for bit; ``psum_dp`` and ``gspmd``
-    associate the gradient's sum over the ranks otherwise, and agree with
-    it within f32 rounding.  ``zero1``, ``fault_runtime`` and
+    ``psum``).  The loss and the metrics are gathered in vertex order, so
+    ``edst`` equals the stacked step bit for bit; ``psum_dp`` associates
+    the gradient's sum over the ranks otherwise, and agrees with it
+    within f32 rounding.
+
+    ``gspmd`` over the ranks runs on DTensors (:func:`_gspmd_body`): with
+    parameters that are DTensors (placed by
+    :func:`repro_torch.dist.sharding.tree_shardings`, as the reference's
+    ``train.py`` places them), the batch is split over the mesh's data
+    axes, each parameter is gathered over the data axes where it is used
+    (``fsdp``: its FSDP split is undone for the forward and the gradient
+    reduce-scattered back onto it; the ``model`` split stays, so the
+    products run tensor-parallel), and AdamW updates the shards; the
+    returned parameters and moments keep the placements.  Plain
+    parameters are taken as replicated on a one-axis ``data`` mesh over
+    ``group`` and come back plain.  The loss, the grad norm and the
+    metrics are full values, equal on every rank.  ``fsdp`` is the
+    reference's flag; as there, the caller's placements decide, and
+    ``fsdp=False`` leaves the parameters as placed.  ``zero1``, ``fault_runtime`` and
     ``telemetry`` run over the ranks too, bit for bit with the stacked
     step: each rank holds the optimizer state of its own vertices, the
     clip norm and the telemetry's sums are taken over per-vertex values
@@ -320,7 +338,7 @@ def make_train_step(api, opt, mesh_shape, axis_names, mode: str = "edst",
     rank = dist.get_rank(group) if pg else 0
     if mode == "gspmd":
         counts = [1] * world
-        lo, hi = rank, rank + 1
+        lo, hi = 0, 1
     else:
         blocks = vertex_blocks(n, world)
         counts = [b - a for a, b in blocks]
@@ -387,8 +405,7 @@ def make_train_step(api, opt, mesh_shape, axis_names, mode: str = "edst",
         grads = torch.empty((rows_n, size), dtype=leaves[0].dtype,
                             device=leaves[0].device)
         losses, auxs = [], []
-        parts = _split_batch(batch, world, "ranks") if mode == "gspmd" \
-            else _split_batch(batch, n)
+        parts = [batch] if mode == "gspmd" else _split_batch(batch, n)
         for v, part in enumerate(parts[lo:hi]):
             row = grads[v]
             mlosses, maux = [], []
@@ -418,9 +435,6 @@ def make_train_step(api, opt, mesh_shape, axis_names, mode: str = "edst",
         tel = {}
         if mode == "gspmd" or n == 1:
             out = g[0]
-            if pg:      # the mean of the ranks' shares, as XLA's partition
-                dist.all_reduce(out, group=group)
-                out = out / world
         elif mode == "psum_dp":
             # the local rows' sum, then one all_reduce over the ranks
             out = fabric_on(g.device).psum(g)[0] / n
@@ -507,6 +521,8 @@ def make_train_step(api, opt, mesh_shape, axis_names, mode: str = "edst",
             "loss": loss, "grad_norm": gnorm, "lr": lr, **tel, **aux}
 
     body = zero1_step if zero1 else dense_step
+    if mode == "gspmd" and pg:
+        body = _gspmd_body(loss_of, opt, grad_accum, telemetry, fsdp, group)
 
     if fault_runtime is None:
         def step(params, opt_state, batch):
@@ -524,3 +540,121 @@ def _detach(tree):
     if isinstance(tree, dict):
         return {k: _detach(v) for k, v in tree.items()}
     return tree.detach()
+
+
+def _map_tensors(fn, tree):
+    """``fn`` over every tensor of a tree of dicts, tuples (named ones
+    too) and lists; other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: _map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_tensors(fn, v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_tensors(fn, v) for v in tree)
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def _full(x):
+    """A DTensor's whole value as a plain tensor; a plain one as it is."""
+    from torch.distributed.tensor import DTensor
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def full_values(tree):
+    """``tree`` with every DTensor replaced by its whole value (a
+    collective: every rank of its mesh calls it); the rest as it is."""
+    return _map_tensors(_full, tree)
+
+
+def _gspmd_body(loss_of, opt, grad_accum: int, telemetry: bool,
+                fsdp: bool, group):
+    """The ``gspmd`` step over the ranks of ``group`` on DTensors (see
+    :func:`make_train_step`): ``body(params, opt_state, batch, sid)``."""
+    from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from .sharding import gather_fsdp, placements, spec_for
+    meshes: dict = {}
+
+    def group_mesh(device):
+        """Plain parameters' mesh: the group's ranks on one data axis."""
+        mesh = meshes.get(device.type)
+        if mesh is None:
+            from torch.distributed.device_mesh import DeviceMesh
+            mesh = meshes[device.type] = DeviceMesh.from_group(
+                group or dist.group.WORLD, device.type,
+                mesh_dim_names=("data",))
+        return mesh
+
+    def microbatches(batch, mesh):
+        """Each entry's rows split over the data axes (as ``spec_for``
+        places a ``batch`` dim), then this rank's rows into
+        ``grad_accum`` microbatches."""
+        out = [{} for _ in range(grad_accum)]
+        for k, v in batch.items():
+            axes = ("batch",) + (None,) * (v.dim() - 1)
+            pl = placements(spec_for(axes, v.shape, mesh, fsdp=False), mesh)
+            local = distribute_tensor(v, mesh, pl,
+                                      src_data_rank=None).to_local()
+            parts = _split_batch({k: local}, grad_accum, "microbatches")
+            for i, part in enumerate(parts):
+                out[i][k] = DTensor.from_local(part[k], mesh, pl)
+        return out
+
+    def body(params, opt_state, batch, sid):
+        leaves = tree_leaves(params)
+        plain = not isinstance(leaves[0], DTensor)
+        if plain:
+            mesh = group_mesh(leaves[0].device)
+            rep = [Replicate()]
+
+            def wrap(t):
+                return DTensor.from_local(t, mesh, rep)
+            params = _map_tensors(wrap, params)
+            opt_state = _map_tensors(wrap, opt_state)
+            leaves = tree_leaves(params)
+        mesh = leaves[0].device_mesh
+        leaves = [p.detach().requires_grad_(True) for p in leaves]
+        grads, losses, auxs = None, [], []
+        with implicit_replication():
+            for mb in microbatches(batch, mesh):
+                used = _unflatten_leaves(leaves, params)
+                if fsdp:
+                    used = gather_fsdp(used)
+                lv, aux = loss_of(used, mb)
+                gs = torch.autograd.grad(lv, leaves)
+                grads = list(gs) if grads is None else \
+                    [a + b for a, b in zip(grads, gs)]
+                losses.append(_full(lv.detach()))
+                auxs.append({k: _full(a.detach()) for k, a in aux.items()})
+            grads = [g.redistribute(mesh, p.placements)
+                     for g, p in zip(grads, leaves)]
+            if grad_accum > 1:
+                grads = [g / grad_accum for g in grads]
+            new_params, new_state, om = opt.apply(
+                _unflatten_leaves([p.detach() for p in leaves], params),
+                _unflatten_leaves(grads, params), opt_state)
+        metrics = {"loss": sum(losses) / grad_accum,
+                   **{k: _full(v) for k, v in om.items()},
+                   **_mean_aux(auxs)}
+        if telemetry:
+            metrics.update(sync_dev=0.0, sync_wire_bytes=0.0,
+                           sync_grad_norm=float(metrics["grad_norm"]),
+                           sync_schedule_id=sid)
+        if plain:
+            new_params = full_values(new_params)
+            new_state = full_values(new_state)
+        return new_params, new_state, metrics
+
+    return body
+
+
+def _unflatten_leaves(leaves: list, like):
+    """The tree of ``like`` with ``leaves`` in sorted-key order."""
+    it = iter(leaves)
+
+    def fill(t):
+        if isinstance(t, dict):
+            return {k: fill(t[k]) for k in sorted(t)}
+        return next(it)
+    return fill(like)

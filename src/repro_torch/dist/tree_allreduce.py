@@ -65,6 +65,7 @@ from ..core.collectives import (CostModel, FusedAllreduceSpec,
 from ..kernels.tree_combine.ops import (combine, q8_combine_rows,
                                         q8_pack_rows, q8_unpack_rows)
 from ..telemetry import metrics as _metrics
+from . import fabric as fabric_mod
 
 
 # ---------------------------------------------------------------------------
@@ -232,6 +233,8 @@ def _scope(label: str):
     ``named_scope``, a range then costs nothing when nobody records: a
     ``record_function`` costs about 10 us of host time a wave, 7% of the
     striped 2x8 torus's host-bound 4 MiB allreduce on an H100."""
+    if fabric_mod.recording():
+        return fabric_mod.in_wave(label)
     if _WAVE_SCOPES and torch.autograd._profiler_enabled():
         return torch.profiler.record_function(label)
     return nullcontext()

@@ -36,17 +36,27 @@ data-parallel vertices over the ranks, a contiguous block each
 comes from the environment, NCCL with ``cuda:LOCAL_RANK`` for ``--device
 cuda`` and gloo for ``--device cpu``, and rank 0 alone logs and writes
 the metrics, traces, the journal and the dense checkpoints.  Under
+``--sync gspmd`` the ranks form a ``DeviceMesh`` of ``--mesh``'s shape
+with its data axes folded into one (:func:`gspmd_mesh_shape`), every
+parameter is a DTensor placed by the reference's logical-axis rules
+(:func:`repro_torch.dist.sharding.tree_shardings` with FSDP on:
+tensor-parallel over ``model``, ZeRO-3 over the data axes), and the
+batch is split over the data axes.  Under
 ``--zero1`` each rank holds the moments of its own vertices and writes
 their shards of the checkpoint (rank 0 the params and the manifest), and
 a resume gives each rank its own rows back.  Under ``--recover`` every
 rank runs the probe and its own recovery controller on agreed inputs, so
 all take each decision at the same step.  ``--trace-out`` is a predicted
-trace of the compiled program, written by rank 0.  A world size above the
+trace of the compiled program, written by rank 0.  Under the manual
+sync modes (``edst``, ``psum_dp``, ``--zero1``) a world size above the
 data extent and a ``model`` axis above 1 are refused before anything is
 built.
 
     torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
         --reduced --steps 2 --batch 16 --seq 64 --mesh 4,4,1 --device cpu
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --reduced --steps 2 --batch 16 --seq 64 --mesh 2,2 --sync gspmd \
+        --device cpu
 """
 from __future__ import annotations
 
@@ -60,6 +70,7 @@ from pathlib import Path
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch import configs
 from repro_torch.ckpt import (latest_step, restore, restore_sharded,
@@ -69,7 +80,8 @@ from repro_torch.core.device import resolve_device
 from repro_torch.data import SyntheticLMStream
 from repro_torch.dist.fabric import ProcessGroupFabric
 from repro_torch.dist.steps import (ENGINES, dp_extent, edst_spec_for_mesh,
-                                    fault_runtime_for_mesh, make_train_step)
+                                    fault_runtime_for_mesh, full_values,
+                                    make_train_step)
 from repro_torch.models.api import build
 from repro_torch.optim import AdamW, ShardedAdamW, cosine_schedule
 from repro_torch.optim.adamw import tree_leaves
@@ -99,9 +111,14 @@ class TrainResult:
 
 
 def _clone(tree):
+    """A copy of a tree of tensors; a DTensor's whole value, gathered on
+    every rank."""
     if isinstance(tree, dict):
         return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, DTensor):
+        return tree.full_tensor()
     return tree.detach().clone()
+
 
 
 def parser() -> argparse.ArgumentParser:
@@ -174,6 +191,7 @@ class Run:
     fabric: object = None        # under torchrun: this rank's block
     rank: int = 0                # under torchrun: this process's rank
     owns_group: bool = False     # setup initialised it: main destroys it
+    shardings: object = None     # gspmd over ranks: the params' placements
 
     def batch(self, step: int) -> dict:
         return {"tokens": torch.as_tensor(self.stream.batch(step),
@@ -191,9 +209,10 @@ class Run:
                                     opt_state,
                                     owner_element_map(self.zspec, size),
                                     size, fabric=self.fabric)
-        elif self.rank == 0:         # every rank holds the same state
-            save_checkpoint(self.args.ckpt_dir, step,
-                            {"p": params, "o": opt_state})
+        else:                        # every rank holds the same state
+            state = full_values({"p": params, "o": opt_state})
+            if self.rank == 0:
+                save_checkpoint(self.args.ckpt_dir, step, state)
 
     def resume(self, params, opt_state):
         """``(params, opt_state, start step)`` from the newest checkpoint
@@ -207,13 +226,44 @@ class Run:
                 ckpt, params, owner_element_map(self.zspec, size),
                 fabric=self.fabric)
         else:
-            state, start, _ = restore(ckpt, {"p": params, "o": opt_state})
-            params, opt_state = state["p"], state["o"]
+            state, start, _ = restore(
+                ckpt, full_values({"p": params, "o": opt_state}))
+            params, opt_state = self.place(state["p"], state["o"])
         self.log(f"[train] resumed from step {start}")
         return params, opt_state, start
 
+    def place(self, params, opt_state):
+        """Under gspmd over ranks, the params and the moments as DTensors
+        placed by :attr:`shardings` (each rank keeps its own shard of the
+        whole tensors it holds); otherwise as they are."""
+        if self.shardings is None:
+            return params, opt_state
+        from repro_torch.dist.sharding import distribute
+        return (distribute(params, self.shardings),
+                type(opt_state)(opt_state.step,
+                                distribute(opt_state.mu, self.shardings),
+                                distribute(opt_state.nu, self.shardings)))
+
 
 TOKEN_FAMILIES = ("lm", "moe", "rglru", "rwkv6")
+
+
+def gspmd_mesh_shape(world: int, dims, names):
+    """``(shape, names)`` of the ``DeviceMesh`` a gspmd run over ``world``
+    ranks builds for ``--mesh``, or ``None`` where it does not fit.  The
+    data axes (``pod``, ``data``) fold into one ``data`` axis, row-major
+    as the reference flattens them into a DP rank (a dim split over both
+    lies alike), and the ``model`` axis follows it where the two make up
+    the world.  A mesh with no ``model`` axis above 1 may also spread
+    over any divisor of its data extent: its vertices fold into blocks,
+    one ``data`` axis of the world."""
+    model = dict(zip(names, dims)).get("model", 1)
+    n = dp_extent(dims, names)
+    if "model" in names and n * model == world:
+        return (n, model), ("data", "model")
+    if model == 1 and n % world == 0:
+        return (world,), ("data",)
+    return None
 
 
 def dist_setup(args, dims, names):
@@ -226,13 +276,20 @@ def dist_setup(args, dims, names):
         return resolve_device(args.device), None, 0, False
     world, n = int(os.environ["WORLD_SIZE"]), dp_extent(dims, names)
     model = dict(zip(names, dims)).get("model", 1)
-    if world > n:
+    if args.sync == "gspmd" and not args.zero1:
+        if gspmd_mesh_shape(world, dims, names) is None:
+            raise SystemExit(
+                f"train: WORLD_SIZE {world} does not fit --mesh "
+                f"{args.mesh}: gspmd needs the mesh's size, or a divisor "
+                f"of its data-parallel extent {n} with no model axis")
+    elif model > 1:
+        raise SystemExit(f"train: --mesh {args.mesh} has a model axis of "
+                         f"{model}; under --sync {args.sync} the ranks hold "
+                         "data-parallel vertices only (--sync gspmd runs "
+                         "a model axis over the ranks)")
+    elif world > n:
         raise SystemExit(f"train: WORLD_SIZE {world} exceeds --mesh "
                          f"{args.mesh}'s data-parallel extent {n}")
-    if model > 1:
-        raise SystemExit(f"train: --mesh {args.mesh} has a model axis of "
-                         f"{model}; the ranks hold data-parallel vertices "
-                         "only")
     device = resolve_device(args.device)
     if device.type == "cuda":
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
@@ -269,12 +326,22 @@ def setup(args, cfg=None):
     run = Run(args, device, None, SyntheticLMStream(
         cfg.vocab, args.seq, args.batch, seed=args.seed), rank=rank,
         owns_group=mine)
-    if group is not None and n > 1:
+    if group is not None and n > 1 and args.sync != "gspmd":
         run.fabric = ProcessGroupFabric(n, device, group)
     if args.zero1:
         run.zspec = edst_spec_for_mesh(dims, names, engine="striped")
         opt_state = ShardedAdamW(opt).init_for(params, run.zspec, n,
                                                fabric=run.fabric)
+    elif group is not None and args.sync == "gspmd":
+        # the reference's train.py: every parameter placed by the
+        # logical-axis rules, FSDP on
+        from repro_torch.dist.sharding import tree_shardings
+        from repro_torch.launch.mesh import make_mesh
+        mesh = make_mesh(*gspmd_mesh_shape(dist.get_world_size(), dims,
+                                           names))
+        run.shardings = tree_shardings(api.param_axes(), params, mesh,
+                                       fsdp=True)
+        params, opt_state = run.place(params, opt.init(params))
     else:
         opt_state = opt.init(params)
     runtime = None
@@ -490,8 +557,9 @@ def main(argv=None, keep_first_step: bool = False,
         if losses:
             run.log(f"[train] done: first loss {losses[0]:.4f} -> last "
                     f"{losses[-1]:.4f}")
-        return TrainResult(losses, params, metrics, gnorms, secs, init, first,
-                           trace, opt_state, start, ctrl, run.monitor)
+        return TrainResult(losses, full_values(params), metrics, gnorms,
+                           secs, init, first, trace, full_values(opt_state),
+                           start, ctrl, run.monitor)
     finally:
         if run.owns_group:
             dist.destroy_process_group()

@@ -3,13 +3,17 @@ point per architecture family.
 
 ``build(cfg)`` returns a :class:`ModelAPI` exposing init / loss / prefill /
 decode plus ``input_specs(shape)`` (stand-ins of every model input, on the
-``meta`` device) and the logical batch axes of each input.
+``meta`` device) and the logical axes of every parameter
+(``param_axes()``), cache (``cache_axes(batch, max_len)``) and batch input
+(``batch_axes(shape)``), which :mod:`repro_torch.dist.sharding` turns into
+placements.
 
-Departures from the reference, until the port has ``dist/sharding.py``:
-``init`` returns the parameter tree and ``init_cache`` the caches without
-their logical axes, and ``input_specs`` gives ``meta`` tensors where the
-reference gives ``jax.ShapeDtypeStruct``\\ s.  Every prefill runs the
-family's kernels; the losses run the plain versions (autograd).
+The reference's ``init`` and ``init_cache`` return ``(tree, axes)``; here
+``init`` and ``init_cache`` return the tree and the axes come from
+``param_axes()`` / ``cache_axes()``, which allocate nothing.
+``input_specs`` gives ``meta`` tensors where the reference gives
+``jax.ShapeDtypeStruct``\\ s.  Every prefill runs the family's kernels;
+the losses run the plain versions (autograd).
 """
 from __future__ import annotations
 
@@ -36,6 +40,28 @@ class ModelAPI:
     prefill_fn: Callable    # (params, batch) -> (last logits, caches)
     decode_fn: Callable     # (params, caches, batch) -> (logits, new_caches)
     init_cache: Callable    # (batch_size, max_len, device) -> caches
+
+    # ---- logical axes ------------------------------------------------------
+    def param_axes(self) -> dict:
+        """The tree of logical axis tuples parallel to ``init``'s
+        parameters (the reference's ``init(key)[1]``)."""
+        return _PARAM_AXES[self.cfg.family](self.cfg)
+
+    def cache_axes(self, batch: int = 1, max_len: int = 1):
+        """The axes tree parallel to ``init_cache(batch, max_len)``'s
+        caches (the reference's ``init_cache(batch, max_len)[1]``; the
+        axes do not depend on the sizes)."""
+        f = self.cfg.family
+        if f == "rglru":
+            return {"kv_k": _KV_CACHE, "kv_v": _KV_CACHE,
+                    "state": ("layers", "batch", "mlp"),
+                    "conv": ("layers", "batch", None, "mlp"),
+                    "kv_pos": (None,)}
+        if f == "rwkv6":
+            return {"state": ("layers", "batch", "heads", None, None),
+                    "last_tm": ("layers", "batch", "embed"),
+                    "last_cm": ("layers", "batch", "embed")}
+        return (_KV_CACHE, _KV_CACHE)
 
     # ---- stand-ins ---------------------------------------------------------
     def input_specs(self, shape: ShapeSpec) -> dict:
@@ -83,6 +109,98 @@ class ModelAPI:
             else:
                 out[k] = ("batch",) + (None,) * (v.dim() - 1)
         return out
+
+
+# ---------------------------------------------------------------------------
+# logical axes of the parameters, as the reference's inits give them
+# ---------------------------------------------------------------------------
+
+_KV_CACHE = ("layers", "batch", None, "kv_heads", "head_dim")
+_RMS = {"scale": ("embed",)}
+_LN = {"scale": ("embed",), "bias": ("embed",)}
+_EMBED = {"table": ("vocab", "embed")}
+_GLU = {"wi_gate": ("embed", "mlp"), "wi_up": ("embed", "mlp"),
+        "wo": ("mlp", "embed")}
+_DENSE = {"wi": ("embed", "mlp"), "wo": ("mlp", "embed")}
+
+
+def _stacked(tree):
+    """``tree`` with the stacked ``layers`` dim in front of every leaf."""
+    if isinstance(tree, dict):
+        return {k: _stacked(v) for k, v in tree.items()}
+    return ("layers",) + tree
+
+
+def _attention_axes(qkv_bias=False, qk_norm=False) -> dict:
+    a = {"wq": ("embed", "heads", "head_dim"),
+         "wk": ("embed", "kv_heads", "head_dim"),
+         "wv": ("embed", "kv_heads", "head_dim"),
+         "wo": ("heads", "head_dim", "embed")}
+    if qkv_bias:
+        a.update(bq=("heads", "head_dim"), bk=("kv_heads", "head_dim"),
+                 bv=("kv_heads", "head_dim"))
+    if qk_norm:
+        a.update(q_norm=("head_dim",), k_norm=("head_dim",))
+    return a
+
+
+def _lm_axes(cfg) -> dict:
+    layer = {"ln1": _RMS, "attn": _attention_axes(cfg.qkv_bias, cfg.qk_norm),
+             "ln2": _RMS}
+    if cfg.is_moe:
+        moe = {"router": ("embed", "experts"),
+               "wi_gate": ("experts", "embed", "mlp"),
+               "wi_up": ("experts", "embed", "mlp"),
+               "wo": ("experts", "mlp", "embed")}
+        if cfg.n_shared:
+            moe["shared"] = {**_GLU, "gate": ("embed", None)}
+        layer["moe"] = moe
+    else:
+        layer["mlp"] = _GLU
+    return {"embed": _EMBED, "layers": _stacked(layer), "final_norm": _RMS}
+
+
+def _vlm_axes(cfg) -> dict:
+    return {**_lm_axes(cfg), "patch_proj": {"w": ("embed", "embed2")}}
+
+
+def _encdec_axes(cfg) -> dict:
+    attn = _attention_axes()
+    enc = {"ln1": _LN, "attn": attn, "ln2": _LN, "mlp": _DENSE}
+    dec = {"ln1": _LN, "attn": attn, "lnc": _LN, "cross": attn, "ln2": _LN,
+           "mlp": _DENSE}
+    return {"frame_proj": {"w": ("embed", "embed2")}, "embed": _EMBED,
+            "enc": _stacked(enc), "dec": _stacked(dec), "enc_norm": _LN,
+            "dec_norm": _LN}
+
+
+def _rglru_axes(cfg) -> dict:
+    rec = {"ln": _RMS, "w_gate": ("embed", "mlp"), "w_rec": ("embed", "mlp"),
+           "conv_w": (None, "mlp"), "conv_b": ("mlp",),
+           "wa": ("mlp", "mlp2"), "ba": ("mlp",), "wi": ("mlp", "mlp2"),
+           "bi": ("mlp",), "lam": ("mlp",), "wo": ("mlp", "embed")}
+    return {"embed": _EMBED, "rec": _stacked(rec),
+            "att": _stacked({"ln": _RMS, "attn": _attention_axes()}),
+            "mlp": _stacked({"ln": _RMS, "mlp": _GLU}), "final_norm": _RMS}
+
+
+def _rwkv6_axes(cfg) -> dict:
+    layer = {"ln1": _LN, "ln2": _LN, "mu_x": ("embed",), "mu": (None, "embed"),
+             "tm_w1": ("embed", None), "tm_w2": (None, None, "embed"),
+             "wr": ("embed", "embed2"), "wk": ("embed", "embed2"),
+             "wv": ("embed", "embed2"), "wg": ("embed", "embed2"),
+             "wo": ("embed2", "embed"), "w0": ("embed",),
+             "dw1": ("embed", None), "dw2": (None, "embed"),
+             "u": ("heads", "head_dim"), "ln_x": ("embed",),
+             "cm_mu_k": ("embed",), "cm_mu_r": ("embed",),
+             "cm_wk": ("embed", "mlp"), "cm_wv": ("mlp", "embed"),
+             "cm_wr": ("embed", "embed2")}
+    return {"embed": _EMBED, "layers": _stacked(layer), "final_norm": _LN}
+
+
+_PARAM_AXES = {"lm": _lm_axes, "moe": _lm_axes, "vlm": _vlm_axes,
+               "encdec": _encdec_axes, "rglru": _rglru_axes,
+               "rwkv6": _rwkv6_axes}
 
 
 def build(cfg: ArchConfig) -> ModelAPI:

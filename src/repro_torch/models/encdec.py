@@ -141,7 +141,7 @@ def cross_kv(cfg, params, enc_out):
     cv = torch.empty_like(ck)
     for i, lp in enumerate(layers):
         ck[i], cv[i] = _cross_proj(lp, enc_out)
-    return ck, cv
+    return L.head_hint(ck, 3), L.head_hint(cv, 3)
 
 
 def decode(cfg, params, tokens, enc_out=None, *, self_cache=None,

@@ -21,6 +21,7 @@ import functools
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention.ops import attention as flash_attention
@@ -38,6 +39,129 @@ def remat(cfg, fn, *args, **kw):
     if cfg.remat and torch.is_grad_enabled():
         return checkpoint(fn, *args, use_reentrant=False, **kw)
     return fn(*args, **kw)
+
+
+# ---------------------------------------------------------------------------
+# sharding hints
+# ---------------------------------------------------------------------------
+#
+# The reference's ``with_sharding_constraint`` hints.  On a DTensor whose
+# mesh has the axes named, each is a ``redistribute`` to the reference's
+# placement of those dims (every other dim replicated); on anything else,
+# or where the dim does not divide, it returns the same tensor object, so
+# the plain path is untouched.
+
+_DATA_AXES = ("pod", "data")
+
+
+def _hint(x, dims: dict):
+    """``x`` redistributed so that tensor dim ``i`` is split over the mesh
+    axes ``dims[i]`` (a tuple of names), everything else replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = x.device_mesh.mesh_dim_names
+    out = [Replicate()] * len(names)
+    for i, axes in dims.items():
+        for a in axes:
+            out[names.index(a)] = Shard(i)
+    return x.redistribute(x.device_mesh, out)
+
+
+def _mesh_sizes(x) -> dict:
+    """Axis name -> extent of a DTensor's mesh, its axes of extent 1 left
+    out (a split over one device is no split)."""
+    if not isinstance(x, DTensor) or x.device_mesh.mesh_dim_names is None:
+        return {}
+    return {a: n for a, n in zip(x.device_mesh.mesh_dim_names,
+                                 x.device_mesh.shape) if n > 1}
+
+
+def _is_split(x) -> bool:
+    """Whether ``x`` is a DTensor split over some mesh axis."""
+    return isinstance(x, DTensor) and any(p.is_shard()
+                                          for p in x.placements)
+
+
+def _whole(w, dims):
+    """A DTensor weight with its splits of ``dims`` gathered, for a
+    product that flattens those dims behind another: DTensor cannot
+    flatten a split that is not the group's leading dim without a
+    redistribution (torch 2.11 refuses it).  Anything else as it is."""
+    if not isinstance(w, DTensor) or not any(
+            p.is_shard(d) for p in w.placements for d in dims):
+        return w
+    from torch.distributed.tensor import Replicate
+    return w.redistribute(w.device_mesh, [
+        Replicate() if any(p.is_shard(d) for d in dims) else p
+        for p in w.placements])
+
+
+def _data_axes(x, sizes: dict, batch_dim: int = 0):
+    """The data axes ``x``'s dim ``batch_dim`` can be split over, or
+    ``()`` where it does not divide."""
+    names = tuple(a for a in _DATA_AXES if a in sizes)
+    total = int(np.prod([sizes[a] for a in names] or [1]))
+    if not names or x.dim() <= batch_dim or x.shape[batch_dim] % total \
+            or x.shape[batch_dim] < total:
+        return ()
+    return names
+
+
+def batch_hint(x, batch_dim: int = 0):
+    """Split an activation's batch dim over the data axes (the
+    reference's ``batch_hint``: it keeps values that start from a fresh
+    zeros or a gather batch-sharded)."""
+    sizes = _mesh_sizes(x)
+    names = _data_axes(x, sizes, batch_dim)
+    if not names:
+        return x
+    return _hint(x, {batch_dim: names})
+
+
+def _model_hint(x, dim: int):
+    """Split dim ``dim`` over ``model`` and dim 0 over the data axes where
+    they divide; ``None`` where ``dim`` does not divide."""
+    sizes = _mesh_sizes(x)
+    n = sizes.get("model")
+    if not n or x.dim() <= dim or x.shape[dim] % n or x.shape[dim] < n:
+        return None
+    dims = {dim: ("model",)}
+    names = _data_axes(x, sizes)
+    if names and dim != 0:
+        dims[0] = names
+    return _hint(x, dims)
+
+
+def seq_hint(x, seq_dim: int = 1):
+    """Megatron-SP-style hint (the reference's ``seq_hint``): split an
+    activation's sequence dim over ``model`` (and its batch dim over the
+    data axes), as the residual stream lies between layers."""
+    out = _model_hint(x, seq_dim)
+    return x if out is None else out
+
+
+def cache_zeros(shape, dtype, like):
+    """A zeroed ``(L, B, S, KV, hd)`` cache on the mesh of the DTensor
+    ``like``, placed as the reference's ``init_cache`` axes place it
+    (batch over the data axes, the kv heads or else the head dim over
+    ``model``): each rank makes only its own shard, from ``like``'s local
+    tensor (no communication, and fake where that is fake)."""
+    from ..dist.sharding import local_shape, placements, spec_for
+    mesh = like.device_mesh
+    spec = spec_for(("layers", "batch", None, "kv_heads", "head_dim"),
+                    shape, mesh, fsdp=False)
+    local = like.to_local().new_zeros(local_shape(spec, shape, mesh),
+                                      dtype=dtype)
+    return DTensor.from_local(local, mesh, placements(spec, mesh),
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
+
+
+def head_hint(x, head_dim: int):
+    """Split dim ``head_dim`` over ``model`` (plus the batch over the data
+    axes on dim 0); where it does not divide, :func:`batch_hint`."""
+    out = _model_hint(x, head_dim)
+    return batch_hint(x) if out is None else out
 
 
 # ---------------------------------------------------------------------------
@@ -190,19 +314,26 @@ def attention(p, cfg: AttnCfg, x, positions, *, kv_cache=None,
     """
     dt = x.dtype
     s = x.shape[1]
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
+    # on DTensors: the sequence whole (the residual stream arrives split
+    # by position) and the head dim of every weight whole, so that each
+    # product flattens only dims whose split leads
+    x = batch_hint(x)
+    q = torch.einsum("bsd,dhk->bshk", x, _whole(p["wq"], (2,)).to(dt))
+    k = torch.einsum("bsd,dhk->bshk", x, _whole(p["wk"], (2,)).to(dt))
+    v = torch.einsum("bsd,dhk->bshk", x, _whole(p["wv"], (2,)).to(dt))
     if cfg.qkv_bias:
-        q = q + p["bq"].to(dt)
-        k = k + p["bk"].to(dt)
-        v = v + p["bv"].to(dt)
+        q = q + _whole(p["bq"], (1,)).to(dt)
+        k = k + _whole(p["bk"], (1,)).to(dt)
+        v = v + _whole(p["bv"], (1,)).to(dt)
     if cfg.qk_norm:     # the reference's _headwise_rms: rmsnorm over hd
         q = rmsnorm({"scale": p["q_norm"]}, q)
         k = rmsnorm({"scale": p["k_norm"]}, k)
     if cfg.use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    # on DTensors, attention runs batch-split with the heads whole on every
+    # model rank (see sdpa)
+    q, k, v = batch_hint(q), batch_hint(k), batch_hint(v)
     kv_pos, valid_len, new_cache = positions, None, (k, v)
     if kv_cache is not None:
         kc, vc = kv_cache
@@ -228,7 +359,8 @@ def attention(p, cfg: AttnCfg, x, positions, *, kv_cache=None,
     else:
         out = sdpa(q, k, v, positions, kv_pos, cfg, mask_mode,
                    valid_len=valid_len)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt)), new_cache
+    return torch.einsum("bshk,hkd->bsd", out,
+                        _whole(p["wo"], (1,)).to(dt)), new_cache
 
 
 def _mask(qp, kp, cfg: AttnCfg, mask_mode, valid_len=None):
@@ -256,6 +388,11 @@ def sdpa(q, k, v, q_pos, kv_pos, cfg: AttnCfg, mask_mode="causal",
     b, s, h, d = q.shape
     kv = k.shape[2]
     g = h // kv
+    # on DTensors: batch-split only, the heads whole on every model rank
+    # (the grouping cannot cut heads split over the model axis where
+    # ``kv`` does not divide it, and the products below would flatten
+    # the batch and a split head dim together)
+    q, k, v = batch_hint(q), batch_hint(k), batch_hint(v)
     qg = q.reshape(b, s, kv, g, d)
     # the reference scales by a numpy f64 scalar, which promotes the
     # activation-dtype product to f32 before the scale
@@ -268,7 +405,9 @@ def sdpa(q, k, v, q_pos, kv_pos, cfg: AttnCfg, mask_mode="causal",
     l_ = p_.sum(-1)
     acc = torch.einsum("bkgqt,btkd->bkgqd", p_.to(q.dtype), v).float()
     out = (acc / l_.clamp_min(1e-30)[..., None]).to(q.dtype)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
+    # (on DTensors, split by heads for the output projection where they
+    # divide the model axis)
+    return head_hint(out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d), 2)
 
 
 # ---------------------------------------------------------------------------
@@ -286,6 +425,7 @@ def glu_mlp(p, x, kind="swiglu"):
     act = torch.nn.functional.silu if kind == "swiglu" \
         else functools.partial(torch.nn.functional.gelu, approximate="tanh")
     dt = x.dtype
+    x = batch_hint(x)     # on DTensors: the sequence whole for the products
     g = torch.einsum("bsd,df->bsf", x, p["wi_gate"].to(dt))
     u = torch.einsum("bsd,df->bsf", x, p["wi_up"].to(dt))
     return torch.einsum("bsf,fd->bsd", act(g) * u, p["wo"].to(dt))
@@ -314,11 +454,19 @@ def init_embedding(gen, vocab_padded, d, device="cpu"):
 
 
 def embed(p, tokens, dtype=torch.bfloat16):
-    return p["table"].to(dtype)[tokens]
+    table = p["table"].to(dtype)
+    if _is_split(tokens) or _is_split(table):
+        # DTensor's rule for index_put (the lookup's backward) fails on
+        # torch 2.11 for split indices; the embedding op has a rule of its
+        # own (its backward accumulates in another order: kept off
+        # unsplit tensors, which stay bit for bit with plain ones)
+        return batch_hint(torch.nn.functional.embedding(tokens, table))
+    return table[tokens]
 
 
 def unembed(p, x, vocab: int):
     """Logits against the (tied) embedding table; padded slots masked."""
+    x = batch_hint(x)     # on DTensors: the sequence whole for the product
     logits = torch.einsum("bsd,vd->bsv", x, p["table"].to(x.dtype))
     vp = p["table"].shape[0]
     if vp != vocab:
@@ -333,6 +481,7 @@ def chunked_unembed_xent(embed_p, x, labels, vocab: int, chunk: int = 512,
     tied-embedding logits, in sequence chunks of ``chunk`` as the reference
     sums them (without its recompute: autograd keeps each chunk's logits).
     Labels ``-1`` are padding.  x: (B, S, d), labels (B, S)."""
+    x = batch_hint(x)     # on DTensors: the sequence whole for the chunks
     b, s, _ = x.shape
     c = min(chunk, s)
     s_pad = -(-s // c) * c
@@ -345,7 +494,15 @@ def chunked_unembed_xent(embed_p, x, labels, vocab: int, chunk: int = 512,
         xc, lc = x[:, i:i + c], labels[:, i:i + c]
         logits = unembed(embed_p, xc, vocab).float()
         lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, lc.clamp_min(0)[..., None])[..., 0]
+        if isinstance(logits, DTensor) and any(
+                p.is_shard(logits.dim() - 1) for p in logits.placements):
+            # DTensor cannot gather along a split vocab: the label's logit
+            # as a sum over the vocab with one term not zero
+            hit = torch.arange(logits.shape[-1], device=logits.device) \
+                == lc.clamp_min(0)[..., None]
+            ll = torch.where(hit, logits, 0.0).sum(-1)
+        else:
+            ll = torch.gather(logits, -1, lc.clamp_min(0)[..., None])[..., 0]
         loss = lse - ll
         if z_loss:
             loss = loss + z_loss * lse ** 2

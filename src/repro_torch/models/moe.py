@@ -19,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .layers import ninit
+from .layers import batch_hint, ninit
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +83,7 @@ def capacity(cfg: MoECfg, g: int) -> int:
 
 def moe_layer(p, cfg: MoECfg, x):
     """x: (B, S, d) -> (out (B, S, d), aux losses dict)."""
+    x = batch_hint(x)     # on DTensors: the sequence whole for the groups
     b, s, d = x.shape
     e, k, dt = cfg.n_experts_padded, cfg.top_k, x.dtype
     g = min(cfg.group_size, s)
@@ -106,9 +107,9 @@ def moe_layer(p, cfg: MoECfg, x):
     # dispatch / combine (b,ng,g,e,cap) from two one-hots contracted over k
     oh_e = onehot.to(dt)
     oh_c = F.one_hot(slot_tk, cap).to(dt) * keep[..., None].to(dt)
-    dispatch = torch.einsum("bgtke,bgtkc->bgtec", oh_e, oh_c)
-    combine = torch.einsum("bgtke,bgtkc->bgtec",
-                           oh_e * gate_vals[..., None].to(dt), oh_c)
+    dispatch = batch_hint(torch.einsum("bgtke,bgtkc->bgtec", oh_e, oh_c))
+    combine = batch_hint(torch.einsum(
+        "bgtke,bgtkc->bgtec", oh_e * gate_vals[..., None].to(dt), oh_c))
 
     xin = torch.einsum("bgtec,bgtd->bgecd", dispatch, xg)
     h_g = torch.einsum("bgecd,edf->bgecf", xin, p["wi_gate"].to(dt))

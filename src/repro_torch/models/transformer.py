@@ -12,6 +12,7 @@ writes it in place.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from . import layers as L
 from .moe import MoECfg, init_moe, moe_layer
@@ -79,16 +80,19 @@ def _block(cfg, lp, x, positions, kv_cache=None, cache_len=None,
            fresh=False):
     """One layer: ``(x, aux)``, aux the MoE's losses (empty for a dense
     MLP)."""
+    x = L.seq_hint(x)   # residual stream sequence-sharded between layers
     h, _ = L.attention(lp["attn"], attn_cfg(cfg), L.rmsnorm(lp["ln1"], x),
                        positions, kv_cache=kv_cache, cache_len=cache_len,
                        fresh=fresh)
-    x = x + h
+    # each branch joins the stream through its own hint, so that on
+    # DTensors its gradient comes back in the branch's own placement
+    x = x + L.seq_hint(h)
     h2 = L.rmsnorm(lp["ln2"], x)
     if cfg.is_moe:
         out, aux = moe_layer(lp["moe"], moe_cfg(cfg), h2)
     else:
         out, aux = L.glu_mlp(lp["mlp"], h2, cfg.mlp_kind), {}
-    return x + out, aux
+    return x + L.seq_hint(out), aux
 
 
 def hidden_states(cfg, params, tokens, *, cache=None, cache_len=None,
@@ -154,7 +158,14 @@ def init_cache(cfg, batch, max_len, dtype=torch.bfloat16, device="cpu"):
 def prefill(cfg, params, tokens, max_len):
     """Run the prompt while writing a fresh ``max_len`` cache; returns the
     last position's logits (B, vocab_padded) and the cache."""
-    cache = init_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
+    if isinstance(tokens, DTensor):
+        shape = (cfg.n_layers, tokens.shape[0], max_len, cfg.n_kv,
+                 cfg.head_dim_)
+        cache = tuple(L.cache_zeros(shape, torch.bfloat16, tokens)
+                      for _ in range(2))
+    else:
+        cache = init_cache(cfg, tokens.shape[0], max_len,
+                           device=tokens.device)
     logits = forward(cfg, params, tokens, cache=cache, cache_len=0,
                      last_only=True)
     return logits[:, -1], cache

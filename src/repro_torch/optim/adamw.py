@@ -62,9 +62,9 @@ class AdamW:
     clip_norm: float = 1.0
 
     def init(self, params) -> OptState:
+        # zeros_like: a DTensor parameter's moments keep its placements
         zeros = lambda p: tree_map(
-            lambda x: torch.zeros(x.shape, dtype=torch.float32,
-                                  device=x.device), p)
+            lambda x: torch.zeros_like(x, dtype=torch.float32), p)
         return OptState(0, zeros(params), zeros(params))
 
     @torch.no_grad()

@@ -7,8 +7,9 @@ The reduced smollm-135m trains 2 steps on the 4x4 torus (``--mesh
 4,4,1``, 4 vertices a rank) and the 2x2 torus (``2,2,1``, one a rank).
 ``edst`` must equal the stacked run's losses, grad norms and parameters
 bit for bit.  ``psum_dp`` (a local sum, then ``all_reduce``) and
-``gspmd`` (each rank's share of the batch, all-reduced) associate the
-gradient's sum otherwise: each must stay within the stacked ``psum_dp``'s
+``gspmd`` (DTensor parameters on the ranks' one ``data`` axis, each
+rank's rows of the batch, the gradients reduce-scattered onto the FSDP
+shards) associate the gradient's sum otherwise: each must stay within the stacked ``psum_dp``'s
 first-step grad-norm limit (1e-6, f32), and its mean gradient within 1e-6
 of the largest element of ``psum_dp``'s (the limit the stacked
 ``grad_accum`` test holds); ``psum_dp``'s first step must move the
@@ -17,8 +18,9 @@ of them).  Every rank must end with the same parameters.  (``gspmd``'s
 move is not compared: on these inputs it differs from ``psum_dp``'s by a
 few f32 roundings of the parameters, 1.5e-5 of its size for the stacked
 ``gspmd`` and 2.0e-5 over the ranks, past the 1e-5 that ``edst`` meets.)
-A world size above the data extent and a model axis above 1 are refused
-before anything is built.  (``--zero1``, ``--recover`` and
+A world size above the data extent and, under the manual sync modes, a
+model axis above 1 are refused before anything is built
+(``tests/test_torch_gspmd_pg.py`` runs gspmd on a model axis).  (``--zero1``, ``--recover`` and
 ``--trace-out`` run over the ranks: ``tests/test_torch_recover_pg.py``
 and ``tests/test_torch_zero1_pg.py`` hold them to the stacked run.)
 """
