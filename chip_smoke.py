@@ -1689,7 +1689,7 @@ def zero1_rank(rank, world, init, out_dir):
                             world_size=world, device_id=dev)
     try:
         res = train.main(FABRIC_ZERO1 + ["--zero1", "--steps", "1"],
-                         cfg=fault_loop_cfg())
+                         cfg=zero1_cfg())
         torch.save({"losses": res.losses, "grad_norms": res.grad_norms,
                     "params": flat_of(res.params).cpu(),
                     "rows": tuple(res.opt_state.mu.shape)},
@@ -1838,7 +1838,8 @@ def fabric_gspmd(dev, per_run):
     the stacked run's.  Then one warm step of the same run timed, the
     program analyser's per-device counts of the next step, the roofline
     terms of those counts and the measured roofline share (model FLOPs
-    over the bf16 peak, over the warm step)."""
+    over the bf16 peak, over the warm step).  Then the other token
+    families the same way (:func:`fabric_gspmd_families`)."""
     import os
     import torch
     from torch.distributed.tensor import DTensor
@@ -1923,20 +1924,94 @@ def fabric_gspmd(dev, per_run):
             f"measured roofline share model_flops / 989e12 / step "
             f"{share!r} ({share:.2%})")
         assert st.dot_flops > 0 and math.isfinite(warm)
+        torch.cuda.empty_cache()
+        fabric_gspmd_families(per_run)
     finally:
         for key in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
             os.environ.pop(key)
     torch.cuda.empty_cache()
 
 
-DRYRUN_CELL = ["--arch", "smollm-135m", "--shape", "train_4k"]
+def fabric_gspmd_families(per_run):
+    """``--sync gspmd`` with DTensor parameters for the other token
+    families (``FAMILY_TRAIN``'s depths, full width, batch 8 x 256, 2
+    steps) on the world-1 group's (1, 1) mesh, under torchrun's
+    environment: each held to ``phase_train_families``' stacked gspmd run
+    of the same seed and depth (``FAMILY_GSPMD_REF``): the same initial
+    parameters, the first step's loss equal and its grad norm within
+    1e-6, the first move bit for bit or within 1e-5 of its size, the
+    second step's loss and grad norm within 1e-5 of the stacked ones (a
+    move off by that much moves them by as little: DTensor's backward
+    adds some gradients in another order, so the move is not always bit
+    for bit), the peak within ``FABRIC_PEAK_SLACK`` of the stacked run's,
+    and no kernel launched; each warm step logged beside the stacked
+    one."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import train
+    for arch, layers, _ in FAMILY_TRAIN:
+        ref = FAMILY_GSPMD_REF.pop(arch)
+        cfg = dataclasses.replace(configs.get(arch), n_layers=layers)
+        argv = ["--arch", arch, "--batch", "8", "--seq", "256", "--mesh",
+                "1,1", "--sync", "gspmd", "--steps", "2", "--log-every", "1",
+                "--device", "cuda"]
+        reset_all()
+        torch.cuda.reset_peak_memory_stats()
+        res = train.main(argv, keep_first_step=True, cfg=cfg)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        tag = f"fabric nccl-1 train gspmd dtensor {arch}"
+        per_run[tag] = c = counts()
+        p0 = flat_of(res.init_params).cpu()
+        d = flat_of(res.first_step_params).cpu() - p0
+        same_init = torch.equal(p0, ref["p0"])
+        del p0
+        move = float((d - ref["d"]).norm() / ref["d"].norm())
+        moved_equal = torch.equal(d, ref["d"])
+        del d
+        gn = [abs(a - b) / b for a, b in zip(res.grad_norms,
+                                             ref["grad_norms"])]
+        dloss = abs(res.losses[1] - ref["losses"][1]) / ref["losses"][1]
+        log(f"{tag} ({layers} of {configs.get(arch).n_layers} layers, 8 x "
+            f"256, (1, 1) mesh): "
+            f"losses {res.losses} (stacked {ref['losses']}), grad norms "
+            f"{res.grad_norms} (stacked {ref['grad_norms']}, relative "
+            f"{gn!r}; second loss relative {dloss!r}), first move off the "
+            f"stacked one by {move!r} of its "
+            f"size (bit for bit {moved_equal}); warm step "
+            f"{res.step_seconds[1]!r} s beside stacked "
+            f"{ref['step_seconds'][1]!r} s (s/step {res.step_seconds}, "
+            f"stacked {ref['step_seconds']}); peak {peak / 1e9:.4f} GB "
+            f"(stacked {ref['peak'] / 1e9:.4f} GB); launches {c}")
+        assert same_init, f"{tag}: a different init"
+        assert res.losses[0] == ref["losses"][0], (tag, res.losses)
+        assert gn[0] <= 1e-6, (tag, gn)
+        assert moved_equal or move <= 1e-5, (tag, move)
+        assert max(gn[1], dloss) <= 1e-5, (tag, gn, dloss)
+        assert peak <= ref["peak"] + FABRIC_PEAK_SLACK, (tag, peak,
+                                                         ref["peak"])
+        assert sum(c.values()) == 0, (tag, c)
+        del res, ref
+        torch.cuda.empty_cache()
+
+
+# the dry run's cells, one after the other in one host subprocess on a fake
+# 16 x 16 group: an lm training cell and the recurrent decode cell
+DRYRUN_CELLS = (("smollm-135m", "train_4k"), ("rwkv6-7b", "long_500k"))
+DRYRUN_CODE = """
+import json, sys
+from repro_torch.launch.dryrun import run_cell
+json.dump([run_cell(a, s, False) for a, s in CELLS], open(OUT, "w"))
+"""
 
 
 def start_dryrun():
-    """One host subprocess: ``repro_torch.launch.dryrun`` of smollm-135m's
-    train_4k cell on a fake 16 x 16 group (CPU only: it sees no card).
-    Returns ``(process, start, out file, end box)``; a thread stamps the
-    end, so its seconds are its own wherever it is collected."""
+    """One host subprocess: ``repro_torch.launch.dryrun.run_cell`` of each
+    of ``DRYRUN_CELLS`` in turn on a fake 16 x 16 group (CPU only: it sees
+    no card).  Returns ``(process, start, out file, end box)``; a thread
+    stamps the end, so its seconds are its own wherever it is
+    collected."""
     import os
     import threading
     out = ROOT / "build" / "dryrun_smoke.json"
@@ -1945,9 +2020,9 @@ def start_dryrun():
     env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
     t0 = time.perf_counter()
     proc = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun"] + DRYRUN_CELL
-        + ["--out", str(out)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
+        [sys.executable, "-c", f"CELLS = {DRYRUN_CELLS!r}\n"
+         f"OUT = {str(out)!r}\n" + DRYRUN_CODE], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     end = []
     threading.Thread(target=lambda: (proc.wait(),
                                      end.append(time.perf_counter())),
@@ -1957,7 +2032,7 @@ def start_dryrun():
 
 def finish_dryrun(started):
     """Wait for :func:`start_dryrun`'s subprocess (600 s at most) and hold
-    its cell: exit code 0, peak within 80 GB, collectives issued."""
+    each cell: exit code 0, peak within 80 GB, collectives issued."""
     proc, t0, out, end = started
     try:
         text, _ = proc.communicate(timeout=600)
@@ -1970,15 +2045,19 @@ def finish_dryrun(started):
                                                               "  "))]
     log("dryrun subprocess: " + " | ".join(lines))
     assert proc.returncode == 0, ("dry run failed", text[-3000:])
-    cell = json.loads(out.read_text())[0]
-    mem, coll = cell["memory"], cell["collectives"]
-    log(f"dryrun smollm-135m train_4k on a fake 16x16 group: {secs!r} s "
-        f"(trace {cell['trace_s']} s), peak {mem['peak_bytes'] / 1e9:.3f} "
-        f"GB a device (fits {cell['fits']}), dot flops {cell['flops']!r}, "
-        f"collective counts {coll['counts']}, bytes {coll['total_bytes']!r}"
-        f", roofline {cell['roofline']}")
-    assert cell["fits"] and mem["peak_bytes"] <= 80e9, mem
-    assert sum(coll["counts"].values()) > 0, coll
+    cells = json.loads(out.read_text())
+    assert [(c["arch"], c["shape"]) for c in cells] == list(DRYRUN_CELLS)
+    for cell in cells:
+        mem, coll = cell["memory"], cell["collectives"]
+        log(f"dryrun {cell['arch']} {cell['shape']} on a fake 16x16 group: "
+            f"trace {cell['trace_s']} s, peak "
+            f"{mem['peak_bytes'] / 1e9:.3f} GB a device (fits "
+            f"{cell['fits']}), dot flops {cell['flops']!r}, collective "
+            f"counts {coll['counts']}, bytes {coll['total_bytes']!r}, "
+            f"roofline {cell['roofline']}")
+        assert cell["fits"] and mem["peak_bytes"] <= 80e9, mem
+        assert sum(coll["counts"].values()) > 0, coll
+    log(f"dryrun subprocess: {len(cells)} cells in {secs!r} s")
     out.unlink(missing_ok=True)
     return secs
 
@@ -1986,7 +2065,8 @@ def finish_dryrun(started):
 def fabric_zero1(dev, per_run):
     """ZeRO-1, the fault runtime, the sharded checkpoint, the recovery loop
     and the wave timer on the world-1 NCCL group already initialised, at
-    full width, each held to ``phase_zero1``'s stacked run (``ZERO1_REF``)
+    full width and ``ZERO1_LAYERS`` deep, each held to ``phase_zero1``'s
+    stacked run (``ZERO1_REF``)
     bit for bit; every run counted into ``per_run``."""
     import os
     import torch
@@ -2001,7 +2081,7 @@ def fabric_zero1(dev, per_run):
     from repro_torch.optim.sharded import ShardedOptState
     from repro_torch.telemetry.timing import timed_waves
     group = dist.group.WORLD
-    cfg = fault_loop_cfg()
+    cfg = zero1_cfg()
     api = build(cfg)
     stream = SyntheticLMStream(cfg.vocab, 256, 32, seed=0)
 
@@ -2073,16 +2153,17 @@ def fabric_zero1(dev, per_run):
     fabric = ProcessGroupFabric(N_VERT, dev)
     sid = ref["sid"]
     params = to_dev(ref["params"], dev)
+    n_p = n_params(params)
     mu0, nu0 = ref["mu"].to(dev), ref["nu"].to(dev)
     t0 = time.perf_counter()
-    mu = rt.reshard_owned(mu0, 0, sid, N_PARAMS, fabric)
+    mu = rt.reshard_owned(mu0, 0, sid, n_p, fabric)
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0
-    back = rt.reshard_owned(mu, sid, 0, N_PARAMS, fabric)
+    back = rt.reshard_owned(mu, sid, 0, n_p, fabric)
     there_back = torch.equal(back, mu0)
     del back, mu0
     t0 = time.perf_counter()
-    nu = rt.reshard_owned(nu0, 0, sid, N_PARAMS, fabric)
+    nu = rt.reshard_owned(nu0, 0, sid, n_p, fabric)
     torch.cuda.synchronize()
     t_warm = time.perf_counter() - t0
     del nu0
@@ -2176,7 +2257,7 @@ def fabric_zero1(dev, per_run):
     assert dec.action == "flip" and met["sync_dev"] == 0.0
     _held_to_psum(f"fabric nccl-1 recover step 3 ({ctrl.runtime.entry.name})",
                   rec.params, rec.opt_state, batch(2), new_params,
-                  met["grad_norm"], opt2)
+                  met["grad_norm"], opt2, cfg=cfg)
     del rec, new_params, ctrl, mon, step_fn
     torch.cuda.empty_cache()
 
@@ -2466,6 +2547,11 @@ FAMILY_TRAIN = (("rwkv6-7b", 1, "2,2,1"), ("olmoe-1b-7b", 1, "2,2,1"),
 # lr * sign(g), where a sign of a gradient within rounding of zero may flip)
 # to 0.1, far below the sqrt(2) of an unrelated step
 GSPMD_GN_REL, GSPMD_MOVE_REL = 2.0 ** -8, 0.1
+# phase_train_families' stacked gspmd run of each family, on the host, for
+# fabric_gspmd's DTensor runs of the same seed and depth: arch -> losses,
+# grad norms, step seconds, the initial parameters and the first move
+# (flat, f32) and the run's peak bytes
+FAMILY_GSPMD_REF = {}
 
 
 def phase_train_families(dev):
@@ -2481,7 +2567,9 @@ def phase_train_families(dev):
     Losses finite, the MoE's
     aux metrics finite, ``tree_combine`` launched in every f32 edst run
     and the int8 codec (pack, combine, unpack) in the int8 one, no kernel
-    in gspmd's; peak under 60 GB.
+    in gspmd's; peak under 60 GB.  Each gspmd run's losses, grad norms,
+    step seconds, first step and peak stay on the host in
+    ``FAMILY_GSPMD_REF`` for ``fabric_gspmd``.
     Every launch counter is set to 0 just before each run and read just
     after it; returns ``{run: {kernel: launches}}``."""
     import dataclasses
@@ -2500,11 +2588,15 @@ def phase_train_families(dev):
                 mesh, "--log-every", "1", "--device", "cuda"]
         torch.cuda.reset_peak_memory_stats()
 
-        def run(tag, extra, cfg=cfg, base=base, keep=True):
+        def run(tag, extra, cfg=cfg, base=base, keep=True, arch=arch):
             reset_all()
             t0 = time.perf_counter()
+            peaks[arch] = max(peaks.get(arch, 0),
+                              torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
             res = train.main(base + extra, keep_first_step=keep, cfg=cfg)
             torch.cuda.synchronize()
+            res.peak = torch.cuda.max_memory_allocated()
             per_run[tag] = c = counts()
             aux = {k: float(v) for k, v in res.metrics.items()
                    if k.startswith("moe_")}
@@ -2553,6 +2645,11 @@ def phase_train_families(dev):
             gn = res.grad_norms[0]
             if sync == "edst":
                 warm = res.step_seconds[1]
+            else:
+                FAMILY_GSPMD_REF[arch] = {
+                    "losses": res.losses, "grad_norms": res.grad_norms,
+                    "step_seconds": res.step_seconds, "p0": q0, "d": d,
+                    "peak": res.peak}
             del res
             assert torch.equal(q0, p0), f"{tag}: a different init"
             del q0
@@ -2584,7 +2681,7 @@ def phase_train_families(dev):
             f"busy {busy / warm:.1%} of the unprofiled warm step ({warm!r} "
             f"s), in the waves {in_waves / warm:.1%}")
         assert split["device_events"] > 0 and in_waves > 0, (arch, split)
-        peaks[arch] = torch.cuda.max_memory_allocated()
+        peaks[arch] = max(peaks[arch], torch.cuda.max_memory_allocated())
         log(f"train {arch} ({layers} of {configs.get(arch).n_layers} "
             f"layers, --mesh {mesh}) peak memory: {peaks[arch] / 1e9:.2f} GB")
     peak = max(peaks.values())
@@ -2618,6 +2715,27 @@ def elastic_cfg():
     return dataclasses.replace(fault_loop_cfg(), n_layers=ELASTIC_LAYERS)
 
 
+# phase_zero1's and fabric_zero1's depth: smollm-135m at full width, 10 of
+# its 30 layers (the fabric's runs are held to phase_zero1's, so both).  At
+# all 30 the smoke passed 1300 s once the blockwise attention's
+# checkpointed step was in the training paths (PERF.md); every check of
+# the two phases is kept, and the synthetic allreduce payloads stay at the
+# full (16, 134,515,008)
+ZERO1_LAYERS = 10
+
+
+def zero1_cfg():
+    """``fault_loop_cfg`` cut to ``ZERO1_LAYERS`` layers."""
+    import dataclasses
+    return dataclasses.replace(fault_loop_cfg(), n_layers=ZERO1_LAYERS)
+
+
+def n_params(tree):
+    """The number of parameters of a tree of tensors (the flat width)."""
+    from repro_torch.optim.adamw import tree_leaves
+    return sum(t.numel() for t in tree_leaves(tree))
+
+
 def _dense_state(step, mu, nu, emap, params):
     """The dense ``OptState`` holding the sharded moments ``mu`` / ``nu``
     laid out on the element map ``emap`` (numpy, -1 = padding)."""
@@ -2630,7 +2748,8 @@ def _dense_state(step, mu, nu, emap, params):
     del emap
     out = []
     for m in (mu, nu):
-        flat = torch.zeros((N_PARAMS,), dtype=torch.float32, device=m.device)
+        flat = torch.zeros((n_params(params),), dtype=torch.float32,
+                           device=m.device)
         flat[idx] = m[live]
         out.append(_unflatten(flat, params))
     return OptState(step, out[0], out[1])
@@ -2686,7 +2805,7 @@ def to_dev(tree, dev):
 
 def phase_zero1(dev):
     """ZeRO-1, the fault runtime, checkpoints and the recovery loop at full
-    width on the 4x4 torus.  Every counted run is set to 0 just before it
+    width, ``ZERO1_LAYERS`` deep, on the 4x4 torus.  Every counted run is set to 0 just before it
     and read just after; returns ``{run: {kernel: launches}}``.
 
     1. ``--zero1`` for 3 steps: the first step held to psum_dp's; one
@@ -2724,7 +2843,7 @@ def phase_zero1(dev):
     from repro_torch.optim import AdamW, ShardedAdamW, cosine_schedule
     base = ["--arch", "smollm-135m", "--batch", "32", "--seq", "256",
             "--log-every", "1", "--device", "cuda", "--mesh", "4,4,1"]
-    cfg = fault_loop_cfg()
+    cfg = zero1_cfg()
     api = build(cfg)
     stream = SyntheticLMStream(cfg.vocab, 256, 32, seed=0)
 
@@ -2788,7 +2907,8 @@ def phase_zero1(dev):
     assert per_run["zero1 torus4x4"]["tree_combine"] > 0
     opt3 = AdamW(cosine_schedule(3e-4, 20, 3))
     _held_to_psum("zero1 step 1", z1.init_params, opt3.init(z1.init_params),
-                  batch(0), z1.first_step_params, z1.grad_norms[0], opt3)
+                  batch(0), z1.first_step_params, z1.grad_norms[0], opt3,
+                  cfg=cfg)
     del z1.init_params, z1.first_step_params
     log(f"zero1: allgathered params identical on all {N_VERT} vertex rows "
         f"(bit for bit); warm s/step in turns: {warm}")
@@ -2811,6 +2931,7 @@ def phase_zero1(dev):
     zstep = make_train_step(api, opt, TORUS_MESH, MESH_NAMES, zero1=True,
                             fault_runtime=rt, telemetry=True)
     params = api.init(torch.Generator(device=dev).manual_seed(0), dev)
+    n_p = n_params(params)
     state = ShardedAdamW(opt).init_for(params, rt, N_VERT)
     dead = sorted(rt.entries[0].sched.trees[0].tree)[0]
     sid_d = rt.on_failure(FailureEvent(links=frozenset({dead})),
@@ -2837,14 +2958,14 @@ def phase_zero1(dev):
                         "nu": state.nu.cpu()}
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                mu = rt.reshard_owned(state.mu, frm, sid, N_PARAMS)
+                mu = rt.reshard_owned(state.mu, frm, sid, n_p)
                 torch.cuda.synchronize()
                 t_first = time.perf_counter() - t0
                 t0 = time.perf_counter()
-                nu = rt.reshard_owned(state.nu, frm, sid, N_PARAMS)
+                nu = rt.reshard_owned(state.nu, frm, sid, n_p)
                 torch.cuda.synchronize()
                 t_warm = time.perf_counter() - t0
-                back = rt.reshard_owned(mu, sid, frm, N_PARAMS)
+                back = rt.reshard_owned(mu, sid, frm, n_p)
                 assert torch.equal(back, state.mu), "reshard is not exact"
                 del back
                 log(f"zero1 flip {frm} -> {sid} ({rt.entries[sid].name}): "
@@ -2853,7 +2974,7 @@ def phase_zero1(dev):
                 state = type(state)(state.step, mu, nu)
                 del mu, nu
             dense = _dense_state(state.step, state.mu, state.nu,
-                                 rt.zero1_element_map(N_PARAMS, sid), params)
+                                 rt.zero1_element_map(n_p, sid), params)
             tag = f"zero1 torus4x4 fault runtime step {i + 1}"
             reset_all()
             t0 = time.perf_counter()
@@ -2866,7 +2987,8 @@ def phase_zero1(dev):
                 f"launches {per_run[tag]}")
             _held_to_psum(f"zero1 fault runtime step {i + 1} "
                           f"({rt.entries[sid].name})", params, dense,
-                          batch(i), new_params, met["grad_norm"], opt)
+                          batch(i), new_params, met["grad_norm"], opt,
+                          cfg=cfg)
             del dense
             ref3 = ZERO1_REF.get("run3")
             if ref3 is not None and ref3["step"] == i:
@@ -2941,12 +3063,12 @@ def phase_zero1(dev):
         del res
         # timing of one save and one restore, on run 1's final state
         spec = edst_spec_for_mesh(TORUS_MESH, MESH_NAMES, engine="striped")
-        emap = owner_element_map(spec, N_PARAMS)
+        emap = owner_element_map(spec, n_p)
         timing = ROOT / "build" / "ckpt_timing"
         shutil.rmtree(timing, ignore_errors=True)
         t0 = time.perf_counter()
         save_sharded_checkpoint(str(timing), 3, z1.params, z1.opt_state,
-                                emap, N_PARAMS)
+                                emap, n_p)
         t_save = time.perf_counter() - t0
         t0 = time.perf_counter()
         p3, st3, _, _ = restore_sharded(str(timing), z1.params, emap)
@@ -2959,12 +3081,12 @@ def phase_zero1(dev):
         # the step-2 checkpoint onto entry 0's and degraded/tree0's maps
         # (the resumed run kept the newest two: steps 2 and 3)
         on0 = restore_sharded(str(ck), z1.params,
-                              rt.zero1_element_map(N_PARAMS, 0), step=2)[1]
+                              rt.zero1_element_map(n_p, 0), step=2)[1]
         on1 = restore_sharded(str(ck), z1.params,
-                              rt.zero1_element_map(N_PARAMS, 1), step=2)[1]
-        moved = rt.reshard_owned(on0.mu, 0, 1, N_PARAMS)
+                              rt.zero1_element_map(n_p, 1), step=2)[1]
+        moved = rt.reshard_owned(on0.mu, 0, 1, n_p)
         ok = torch.equal(on1.mu, moved) and torch.equal(
-            on1.nu, rt.reshard_owned(on0.nu, 0, 1, N_PARAMS))
+            on1.nu, rt.reshard_owned(on0.nu, 0, 1, n_p))
         log(f"checkpoint: sharded save {t_save!r}s, restore {t_restore!r}s "
             f"(params + moments, 16 shards, CRC32 checked); the step-2 "
             f"checkpoint restored onto {rt.entries[1].name}'s element map "
@@ -2987,7 +3109,7 @@ def phase_zero1(dev):
     opt2 = AdamW(cosine_schedule(3e-4, 20, 2))
     _held_to_psum("zero1 recover step 1 (dense edst on entry 0)",
                   rec.init_params, opt2.init(rec.init_params), batch(0),
-                  rec.first_step_params, rec.grad_norms[0], opt2)
+                  rec.first_step_params, rec.grad_norms[0], opt2, cfg=cfg)
     del rec.init_params, rec.first_step_params
     ctrl, mon = rec.controller, rec.monitor
     assert ctrl.schedule_id == 0 and not ctrl.journal
@@ -3018,7 +3140,7 @@ def phase_zero1(dev):
     assert met["sync_dev"] == 0.0 and per_run[tag]["tree_combine"] > 0
     _held_to_psum(f"zero1 recover step 3 ({ctrl.runtime.entry.name})",
                   rec.params, rec.opt_state, batch(2), new_params,
-                  met["grad_norm"], opt2)
+                  met["grad_norm"], opt2, cfg=cfg)
     ZERO1_REF["run5"]["flipped"] = {"loss": float(met["loss"]),
                                     "grad_norm": float(met["grad_norm"]),
                                     "params": flat_of(new_params).cpu()}

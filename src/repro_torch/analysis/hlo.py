@@ -129,6 +129,8 @@ class ProgramRecorder(TorchDispatchMode):
         return added
 
     def _track(self, t) -> int:
+        if t.device.type == "meta":      # shapes only: no memory anywhere
+            return 0
         st = t.untyped_storage()
         if st in self._seen:
             return 0

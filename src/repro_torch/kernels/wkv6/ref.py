@@ -11,8 +11,11 @@ around a per-channel cumulative log-decay ``L``:
     S'  = diag(exp(L_C)) S + sum_i (k_i exp(L_C - L_i)) v_i^T
 
 with ``mx = max_t(-L_t)`` shifting both factors of a score and each
-clamped to [-85, 85], as the reference clamps them.  Arithmetic is f32;
-``out`` comes back in ``r``'s dtype and the state in f32.
+clamped to [-85, 85], as the reference clamps them.  Every chunk's own
+terms are computed for all chunks at once, and only the state runs chunk
+by chunk (two ops a chunk), each element with the arithmetic of one
+chunk at a time.  Arithmetic is f32; ``out`` comes back in ``r``'s dtype
+and the state in f32.
 """
 from __future__ import annotations
 
@@ -38,27 +41,27 @@ def wkv6_ref(r, k, v, logw, u, s0=None, chunk=64):
         return x.float().reshape(b, nc, c, h, n).permute(1, 0, 3, 2, 4)
 
     rc, kc, vc, wc = map(chunks, (r, k, v, logw))
+    lcum = wc.cumsum(3)                            # L_t (inclusive)
+    lprev = lcum - wc                              # L_{t-1}
+    mx = (-lcum).amax(3, keepdim=True)
+    kd = kc * torch.exp(torch.clamp(-lcum + mx, -CLAMP, CLAMP))
+    rd = rc * torch.exp(torch.clamp(lprev - mx, -CLAMP, CLAMP))
+    tri = torch.ones((c, c), dtype=torch.bool, device=r.device).tril(-1)
+    scores = torch.where(tri, torch.einsum("cbhtn,cbhin->cbhti", rd, kd),
+                         0.0)
+    diag = torch.einsum("cbhtn,hn,cbhtn->cbht", rc, u.float(), kc)
+    o = torch.einsum("cbhti,cbhin->cbhtn", scores, vc)
+    o = o + diag[..., None] * vc
+    lc = lcum[:, :, :, -1:, :]                     # (nc, B, H, 1, N)
+    decay = torch.exp(lc.squeeze(3))[..., None]
+    inc = torch.einsum("cbhin,cbhim->cbhnm", kc * torch.exp(lc - lcum), vc)
     s = torch.zeros((b, h, n, n), dtype=torch.float32, device=r.device) \
         if s0 is None else s0
-    tri = torch.ones((c, c), dtype=torch.bool, device=r.device).tril(-1)
-    uf = u.float()
-    outs = []
+    before = []                                    # the state entering each
     for i in range(nc):
-        rr, kk, vv, lw = rc[i], kc[i], vc[i], wc[i]
-        lcum = lw.cumsum(2)                        # L_t (inclusive)
-        lprev = lcum - lw                          # L_{t-1}
-        mx = (-lcum).amax(2, keepdim=True)
-        kd = kk * torch.exp(torch.clamp(-lcum + mx, -CLAMP, CLAMP))
-        rd = rr * torch.exp(torch.clamp(lprev - mx, -CLAMP, CLAMP))
-        scores = torch.einsum("bhtn,bhin->bhti", rd, kd)
-        scores = torch.where(tri, scores, 0.0)
-        diag = torch.einsum("bhtn,hn,bhtn->bht", rr, uf, kk)
-        o = torch.einsum("bhti,bhin->bhtn", scores, vv)
-        o = o + diag[..., None] * vv
-        o = o + torch.einsum("bhtn,bhnm->bhtm", rr * torch.exp(lprev), s)
-        lc = lcum[:, :, -1:, :]                    # (B, H, 1, N)
-        s = torch.exp(lc.squeeze(2))[..., None] * s + torch.einsum(
-            "bhin,bhim->bhnm", kk * torch.exp(lc - lcum), vv)
-        outs.append(o)
-    out = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(b, t_pad, h, n)
+        before.append(s)
+        s = decay[i] * s + inc[i]
+    o = o + torch.einsum("cbhtn,cbhnm->cbhtm", rc * torch.exp(lprev),
+                         torch.stack(before))
+    out = o.permute(1, 0, 3, 2, 4).reshape(b, t_pad, h, n)
     return out[:, :t].to(r.dtype), s

@@ -23,7 +23,8 @@ Usage:
       --reduced          # the config's reduced() fields (tests)
 
 The fake group is process-wide: run cells through this CLI (tests run it
-in a subprocess).
+in a subprocess).  The 2x16x16 mesh is built with its two pods' data axes
+folded into one ``data`` axis of 32 (:func:`make_production_mesh`).
 """
 from __future__ import annotations
 
@@ -85,8 +86,8 @@ def build_cell(arch: str, shape_name: str, mesh, sync_mode: str = "gspmd",
     the models make from their inputs is fake too), while DTensor's
     sharding propagation makes small real tensors of its own and reads
     them, which it cannot inside the mode.  A tensor a model makes from
-    nothing but sizes is real: the flash attention plain version's (S, T)
-    mask is the largest, 1 GiB at 32k."""
+    nothing but sizes is real: the blockwise attention's masks, one
+    (query rows, key block) block a step, are the largest."""
     cfg = configs.get(arch)
     if cfg_overrides:
         cfg = dataclasses.replace(cfg, **cfg_overrides)

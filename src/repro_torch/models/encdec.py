@@ -6,13 +6,15 @@ embeddings (B, S_enc, d).  Decoder: causal self-attention + cross-attention
 over encoder states, KV-cache decode with precomputed cross K/V.  LayerNorm
 + GELU dense MLP, per the m4t transformer family.
 
-Attention runs through the flash attention kernel on every prefill
-(``fresh=True``, which the serving callers set): the encoder's (full
-mask), the decoder's self-attention (causal, over the fresh keys of a
-cache-less prefill or of a cache filled at ``cache_len`` 0) and the
-cross-attention over the encoder's keys (full, S_dec x T_enc).  The loss
-(autograd) and single-token decode steps run the plain :func:`L.sdpa`, as
-the reference computes it outside any kernel.  Layer parameters are
+Attention runs through the flash attention kernel on every prefill on
+the card (``fresh=True``, which the serving callers set, on CUDA
+tensors): the encoder's (full mask), the decoder's self-attention (causal,
+over the fresh keys of a cache-less prefill or of a cache filled at
+``cache_len`` 0) and the cross-attention over the encoder's keys (full,
+S_dec x T_enc).  The loss (autograd), single-token decode steps and a
+prefill on another device run the blockwise :func:`L.sdpa` in
+``cfg.q_block`` x ``cfg.kv_block`` blocks, as the reference computes it
+outside any kernel.  Layer parameters are
 stacked along a leading ``layers`` dimension, as the reference stacks
 them for its ``scan``; the forward unbinds them and loops.
 """
@@ -75,21 +77,22 @@ def init_encdec(cfg, gen: torch.Generator, device="cpu"):
 
 def encode(cfg, params, frames, *, fresh=False):
     """frames: (B, S, d) precomputed frame embeddings (frontend stub).
-    ``fresh=True`` (serving) runs the full-mask attention through the
-    flash kernel, which needs S aligned to its key block for S > 512."""
+    ``fresh=True`` (serving) runs the full-mask attention on CUDA tensors
+    through the flash kernel, which needs S aligned to its key block for
+    S > 512."""
     dt = cfg.act_dtype
     x = torch.einsum("bsd,de->bse", frames.to(dt),
                      params["frame_proj"]["w"].to(dt))
     pos = torch.arange(frames.shape[1], device=frames.device)
-    acfg = attn_cfg(cfg)
     for lp in _unbind(params["enc"]):
-        x = L.remat(cfg, _enc_block, acfg, lp, x, pos, fresh)
+        x = L.remat(cfg, _enc_block, cfg, lp, x, pos, fresh)
     return L.layernorm(params["enc_norm"], x)
 
 
-def _enc_block(acfg, lp, x, pos, fresh):
-    o, _ = L.attention(lp["attn"], acfg, L.layernorm(lp["ln1"], x), pos,
-                       mask_mode="full", fresh=fresh)
+def _enc_block(cfg, lp, x, pos, fresh):
+    o, _ = L.attention(lp["attn"], attn_cfg(cfg), L.layernorm(lp["ln1"], x),
+                       pos, mask_mode="full", fresh=fresh,
+                       q_block=cfg.q_block, kv_block=cfg.kv_block)
     x = x + o
     return x + L.dense_mlp(lp["mlp"], L.layernorm(lp["ln2"], x))
 
@@ -111,7 +114,8 @@ def _dec_block(cfg, lp, x, positions, enc_kv=None, enc_out=None,
     o, new_self = L.attention(lp["attn"], attn_cfg(cfg),
                               L.layernorm(lp["ln1"], x), positions,
                               kv_cache=self_cache, cache_len=cache_len,
-                              fresh=fresh)
+                              fresh=fresh, q_block=cfg.q_block,
+                              kv_block=cfg.kv_block)
     x = x + o
     # cross-attention: K/V either precomputed (serving) or computed here
     # from enc_out
@@ -120,12 +124,13 @@ def _dec_block(cfg, lp, x, positions, enc_kv=None, enc_out=None,
     dt = h.dtype
     q = torch.einsum("bsd,dhk->bshk", h, lp["cross"]["wq"].to(dt))
     ck, cv = ck.to(dt), cv.to(dt)
-    if fresh:
+    if fresh and q.device.type == "cuda":
         out = flash_attention(q, ck, cv, causal=False)
     else:
         out = L.sdpa(q, ck, cv, positions,
                      torch.arange(ck.shape[1], device=x.device), _ccfg(cfg),
-                     mask_mode="full")
+                     mask_mode="full", q_block=cfg.q_block,
+                     kv_block=cfg.kv_block)
     x = x + torch.einsum("bshk,hkd->bsd", out, lp["cross"]["wo"].to(dt))
     x = x + L.dense_mlp(lp["mlp"], L.layernorm(lp["ln2"], x))
     return x, new_self
@@ -152,8 +157,9 @@ def decode(cfg, params, tokens, enc_out=None, *, self_cache=None,
     ``enc_out``.  ``self_cache``: ``(k, v)``, each (L, B, S_max, KV, hd),
     holding ``cache_len`` valid positions, written in place.
 
-    ``fresh=True`` is a prefill (no cache, or one at ``cache_len`` 0): the
-    self- and cross-attention run through the flash kernel."""
+    ``fresh=True`` is a prefill (no cache, or one at ``cache_len`` 0): on
+    CUDA tensors the self- and cross-attention run through the flash
+    kernel."""
     if fresh and cache_len:
         raise ValueError("fresh=True is a prefill: cache_len must be 0")
     x = L.embed(params["embed"], tokens, dtype=cfg.act_dtype)

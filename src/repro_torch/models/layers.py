@@ -11,8 +11,9 @@ for key (``repro/models/layers.py``).  The casts follow the reference
 exactly: parameters stay f32 and are cast to the activation dtype where
 they are used; norms and the softmax run in f32.  Attention is plain
 matmuls, an f32 softmax and the ``-1e30`` mask, as the reference computes
-it outside any kernel, except a prefill's attention over fresh keys,
-which runs through the flash attention kernel.
+it outside any kernel (blockwise, in ``cfg.q_block`` x ``cfg.kv_block``
+blocks), except a prefill's attention over fresh keys on the card, which
+runs through the flash attention kernel.
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
@@ -164,6 +167,66 @@ def head_hint(x, head_dim: int):
     return batch_hint(x) if out is None else out
 
 
+def local_rows(fn, *xs, whole=()):
+    """``fn(*xs)`` on each rank's own rows, for an ``fn`` that treats the
+    rows of dim 0 apart (a scan along the sequence, attention): the
+    reference's ``shard_map`` / ``local_map`` over the batch split.
+
+    Where some ``xs`` are DTensors, each tensor is placed with its dim 0
+    split over the data axes (as :func:`batch_hint` splits it; those at
+    the indices ``whole`` and every other dim whole), ``fn`` runs on the
+    local tensors, so that no op inside it pays DTensor's dispatch, and
+    its tensor outputs, each with the rows on dim 0, come back as
+    DTensors of that placement.  The gradient of a whole input is each
+    rank's sum over its rows, a partial sum over the data axes.  A plain
+    tensor beside them is placed the same way (its rows cut from it, no
+    communication).  Anything that is not a tensor passes as it is.  On
+    plain tensors: ``fn(*xs)``.
+    """
+    like = next((x for i, x in enumerate(xs) if isinstance(x, DTensor)
+                 and i not in whole), None)
+    if like is None:
+        return fn(*xs)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = like.device_mesh
+    names = _data_axes(like, _mesh_sizes(like))
+    rows = [Shard(0) if a in names else Replicate()
+            for a in mesh.mesh_dim_names]
+    n_rows = int(np.prod([mesh.size(mesh.mesh_dim_names.index(a))
+                          for a in names] or [1]))
+    replicated = [Replicate()] * mesh.ndim
+    summed = [Partial() if a in names else Replicate()
+              for a in mesh.mesh_dim_names]
+
+    def local(i, x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        if i in whole and not isinstance(x, DTensor):
+            return x
+        if not isinstance(x, DTensor):
+            x = DTensor.from_local(x, mesh, replicated, run_check=False)
+        if i in whole:
+            return x.redistribute(mesh, replicated).to_local(
+                grad_placements=summed)
+        return x.redistribute(mesh, rows).to_local()
+
+    def placed(y):
+        if not isinstance(y, torch.Tensor):
+            return y
+        # contiguous, as the strides the DTensor is given say: DTensor
+        # decides whether a view is possible from those
+        shape = (y.shape[0] * n_rows,) + tuple(y.shape[1:])
+        return DTensor.from_local(
+            y.contiguous(), mesh, rows, run_check=False,
+            shape=torch.Size(shape),
+            stride=torch.empty(shape, device="meta").stride())
+
+    out = fn(*(local(i, x) for i, x in enumerate(xs)))
+    if isinstance(out, tuple):
+        return tuple(placed(y) for y in out)
+    return placed(out)
+
+
 # ---------------------------------------------------------------------------
 # init helpers
 # ---------------------------------------------------------------------------
@@ -294,7 +357,7 @@ def init_attention(gen, cfg: AttnCfg, device="cpu"):
 
 def attention(p, cfg: AttnCfg, x, positions, *, kv_cache=None,
               cache_len=None, cache_write_idx=None, cache_positions=None,
-              mask_mode="causal", fresh=False):
+              mask_mode="causal", fresh=False, q_block=1024, kv_block=1024):
     """Self-attention, ``mask_mode`` "causal" or "full" (an encoder);
     returns ``(out, new_cache)``.
 
@@ -306,11 +369,12 @@ def attention(p, cfg: AttnCfg, x, positions, *, kv_cache=None,
     every slot, sentinel 1e9) in place, and the cache is returned.
 
     ``fresh=True`` is a prefill: the positions are 0..S-1 and the queries
-    see only the S fresh keys (no cache, or an empty one), so attention
-    runs through the flash attention kernel (``causal=False`` for a full
-    mask, which ignores the window as the reference's mask does).
-    Otherwise (training, decode) it is the plain :func:`sdpa`, as the
-    reference computes it outside any kernel.
+    see only the S fresh keys (no cache, or an empty one), so on CUDA
+    tensors attention runs through the flash attention kernel
+    (``causal=False`` for a full mask, which ignores the window as the
+    reference's mask does).  Everywhere else (training, decode, a prefill
+    on another device) it is the blockwise :func:`sdpa` in ``q_block`` x
+    ``kv_block`` blocks, as the reference computes it outside any kernel.
     """
     dt = x.dtype
     s = x.shape[1]
@@ -352,13 +416,13 @@ def attention(p, cfg: AttnCfg, x, positions, *, kv_cache=None,
             else:
                 kv_pos = torch.arange(kc.shape[1], device=x.device)
                 valid_len = cache_len + s
-    if fresh:
+    if fresh and q.device.type == "cuda":
         causal = mask_mode == "causal"
         out = flash_attention(q, k, v, causal=causal,
                               window=cfg.window if causal else None)
     else:
         out = sdpa(q, k, v, positions, kv_pos, cfg, mask_mode,
-                   valid_len=valid_len)
+                   valid_len=valid_len, q_block=q_block, kv_block=kv_block)
     return torch.einsum("bshk,hkd->bsd", out,
                         _whole(p["wo"], (1,)).to(dt)), new_cache
 
@@ -375,39 +439,123 @@ def _mask(qp, kp, cfg: AttnCfg, mask_mode, valid_len=None):
     return m
 
 
-def sdpa(q, k, v, q_pos, kv_pos, cfg: AttnCfg, mask_mode="causal",
-         valid_len=None):
-    """Softmax attention over all keys at once: the query-key product in
-    the activation dtype, scaled and masked to ``-1e30`` in f32, an f32
-    softmax whose weights are cast to the activation dtype for the value
-    product, as the reference's blockwise ``sdpa`` does within one block.
+# score elements a (batch, head) holds in one step of :func:`sdpa`, unless
+# one (q_block x kv_block) block is larger
+STEP_SCORES = 1 << 22
 
-    q: (B,S,H,D); k,v: (B,T,KV,D) -> (B,S,H,D).  Heads are grouped as the
-    reference groups them: head ``h = kv * g + j``.  Keys at or past
-    ``valid_len`` are masked."""
-    b, s, h, d = q.shape
-    kv = k.shape[2]
-    g = h // kv
-    # on DTensors: batch-split only, the heads whole on every model rank
-    # (the grouping cannot cut heads split over the model axis where
-    # ``kv`` does not divide it, and the products below would flatten
-    # the batch and a split head dim together)
-    q, k, v = batch_hint(q), batch_hint(k), batch_hint(v)
-    qg = q.reshape(b, s, kv, g, d)
-    # the reference scales by a numpy f64 scalar, which promotes the
-    # activation-dtype product to f32 before the scale
-    logits = torch.einsum("bqkgd,btkd->bkgqt", qg, k).float() \
-        * np.float32(1.0 / np.sqrt(d))
-    mask = _mask(q_pos, kv_pos, cfg, mask_mode, valid_len)
-    logits = torch.where(mask, logits, -1e30)
-    m = logits.amax(-1).clamp_min(-1e30)
-    p_ = torch.exp(logits - m[..., None])
-    l_ = p_.sum(-1)
-    acc = torch.einsum("bkgqt,btkd->bkgqd", p_.to(q.dtype), v).float()
-    out = (acc / l_.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+def sdpa(q, k, v, q_pos, kv_pos, cfg: AttnCfg, mask_mode="causal",
+         valid_len=None, q_block=1024, kv_block=1024):
+    """Blockwise attention, the reference's ``sdpa``: an online softmax
+    over ``kv_block`` key blocks for each ``q_block`` query block, in
+    O(block^2) live scores.  For a causal mask over S == T with more than
+    one query block, query block i visits only the key blocks
+    ``[0, ceil((i+1) q_block / kv_block))``.  While autograd records,
+    each step runs under ``torch.utils.checkpoint``: the backward keeps
+    only the softmax carries and recomputes the step's scores.
+
+    q: (B,S,H,D); k,v: (B,T,KV,D) -> (B,S,H,D); q_pos: (S,), kv_pos: (T,)
+    (sentinel 1e9: masked).  Heads are grouped as the reference groups
+    them: head ``h = kv * g + j``.  Keys at or past ``valid_len`` are
+    masked.  On DTensors it runs on each rank's rows, the heads whole on
+    every model rank (the grouping cannot cut heads split over the model
+    axis where ``kv`` does not divide it)."""
+    out = local_rows(functools.partial(
+        _sdpa_blocks, cfg=cfg, mask_mode=mask_mode, q_block=q_block,
+        kv_block=kv_block), q, k, v, q_pos, kv_pos, valid_len,
+        whole=(3, 4, 5))
     # (on DTensors, split by heads for the output projection where they
     # divide the model axis)
-    return head_hint(out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d), 2)
+    return head_hint(out, 2)
+
+
+def _sdpa_blocks(q, k, v, q_pos, kv_pos, valid_len, *, cfg, mask_mode,
+                 q_block, kv_block):
+    """:func:`sdpa` on plain tensors.  The loop runs over the key blocks;
+    each step updates every query block that sees its key block (in
+    groups of at most ``STEP_SCORES`` scores a batch and head), so the
+    loop is short at small blocks and the blocks computed are the
+    reference's, each with the reference's arithmetic."""
+    b, s, h, d = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    qb, kb = min(q_block, s), min(kv_block, t)
+    s_pad, t_pad = -(-s // qb) * qb, -(-t // kb) * kb
+    if s_pad != s:
+        q = F.pad(q, (0, 0, 0, 0, 0, s_pad - s))
+        q_pos = F.pad(q_pos, (0, s_pad - s), value=-(10 ** 9))
+    if t_pad != t:
+        k = F.pad(k, (0, 0, 0, 0, 0, t_pad - t))
+        v = F.pad(v, (0, 0, 0, 0, 0, t_pad - t))
+        kv_pos = F.pad(kv_pos, (0, t_pad - t), value=10 ** 9)
+    nq, nk = s_pad // qb, t_pad // kb
+    bk = b * kv
+    # batched-product layouts, made once: queries (b kv, nq, g, qb, d),
+    # keys (nk, b kv, d, kb) and values (nk, b kv, kb, d)
+    qt = q.reshape(b, nq, qb, kv, g, d).permute(0, 3, 1, 4, 2, 5) \
+        .reshape(bk, nq, g, qb, d)
+    kt = k.reshape(b, nk, kb, kv, d).permute(1, 0, 3, 4, 2) \
+        .reshape(nk, bk, d, kb)
+    vt = v.reshape(b, nk, kb, kv, d).permute(1, 0, 3, 2, 4) \
+        .reshape(nk, bk, kb, d)
+    qpr, kpr = q_pos.reshape(nq, qb), kv_pos.reshape(nk, kb)
+    triangle = mask_mode == "causal" and nq > 1 and s == t
+    per = max(1, STEP_SCORES // (qb * kb))      # query blocks a step
+    groups = [(i, min(i + per, nq)) for i in range(0, nq, per)]
+
+    def step(m, l_, acc, qg, kblk, vblk, qp, kp):
+        n = qg.shape[1]
+        mask = _mask(qp.reshape(-1), kp, cfg, mask_mode, valid_len)
+        # the reference scales by a numpy f64 scalar, which promotes the
+        # activation-dtype product to f32 before the scale
+        logits = torch.bmm(qg.reshape(bk, n * g * qb, d), kblk).float() \
+            * np.float32(1.0 / np.sqrt(d))
+        logits = torch.where(mask.reshape(n, 1, qb, kb),
+                             logits.reshape(bk, n, g, qb, kb), -1e30)
+        m_blk = logits.amax(-1)
+        m_new = m_blk.clamp_min(-1e30) if m is None \
+            else torch.maximum(m, m_blk)
+        p_ = torch.exp(logits - m_new[..., None])
+        pv = torch.bmm(p_.to(qg.dtype).reshape(bk, n * g * qb, kb), vblk)
+        pv = pv.float().reshape(bk, n, g, qb, d)
+        if m is None:   # the first key block, from m = -1e30, l = acc = 0
+            return m_new, p_.sum(-1), pv
+        corr = torch.exp(m - m_new)
+        return m_new, l_ * corr + p_.sum(-1), acc * corr[..., None] + pv
+
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        def run(*a):     # the block step's own checkpoint, not remat's
+            return torch.utils.checkpoint.checkpoint(
+                step, *a, use_reentrant=False, preserve_rng_state=False)
+    else:
+        run = step
+
+    def final(l_, acc):
+        return (acc / l_.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+    # per group: the carries of its blocks [start, hi) that later key
+    # blocks still update, and the outputs of those before
+    carries = [[lo, None, None, None] for lo, _ in groups]
+    done = [[] for _ in groups]
+    for j in range(nk):
+        first = (j * kb) // qb if triangle else 0
+        for r, (_, hi) in enumerate(groups):
+            start, m, l_, acc = carries[r]
+            o = min(max(first - start, 0), hi - start)
+            if o:           # blocks no later key block reaches: final
+                done[r].append(final(l_[:, :o], acc[:, :o]))
+                start, m, l_, acc = start + o, m[:, o:], l_[:, o:], \
+                    acc[:, o:]
+            if start < hi:
+                m, l_, acc = run(m, l_, acc, qt[:, start:hi], kt[j], vt[j],
+                                 qpr[start:hi], kpr[j])
+            carries[r] = [start, m, l_, acc]
+    out = torch.cat([x for r, c in enumerate(carries)
+                     for x in done[r] + [final(*c[2:])] if x.shape[1]],
+                    1)                                    # (b kv,nq,g,qb,d)
+    out = out.reshape(b, kv, nq, g, qb, d).permute(0, 2, 4, 1, 3, 5) \
+        .reshape(b, s_pad, h, d)
+    return out[:, :s]
 
 
 # ---------------------------------------------------------------------------
@@ -460,8 +608,32 @@ def embed(p, tokens, dtype=torch.bfloat16):
         # torch 2.11 for split indices; the embedding op has a rule of its
         # own (its backward accumulates in another order: kept off
         # unsplit tensors, which stay bit for bit with plain ones)
-        return batch_hint(torch.nn.functional.embedding(tokens, table))
+        out = batch_hint(torch.nn.functional.embedding(tokens, table))
+        if any(p.is_partial() for p in out.placements):
+            # a batch too small to split: the lookup's partial sums over a
+            # split vocab are reduced here, while DTensor still holds the
+            # mask that reduction needs
+            from torch.distributed.tensor import Replicate
+            out = out.redistribute(out.device_mesh, [
+                Replicate() if p.is_partial() else p
+                for p in out.placements])
+        # the gradient comes back in this placement: a partial-sum
+        # gradient could not turn into the lookup's masked partial sum
+        return _GradAs.apply(out, out.placements)
     return table[tokens]
+
+
+class _GradAs(torch.autograd.Function):
+    """The identity, its gradient redistributed to ``placements``."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.redistribute(grad.device_mesh, ctx.placements), None
 
 
 def unembed(p, x, vocab: int):

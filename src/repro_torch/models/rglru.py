@@ -4,8 +4,10 @@
 [arXiv:2402.19427].
 
 The RG-LRU recurrence ``h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)``
-runs through the RG-LRU scan kernel for a prefill and as one plain step
-for decode; a prefill's local attention runs through the flash attention
+runs through the RG-LRU scan kernel for a prefill on the card, as one
+plain step for decode, and otherwise (training; a prefill on another
+device) as the reference's associative scan (:func:`rg_lru_scan`); a
+prefill's local attention on the card runs through the flash attention
 kernel.  The temporal conv1d is a width-4 causal depthwise convolution
 written as shifted adds.
 
@@ -21,7 +23,6 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.rglru.ops import lru_scan
-from ..kernels.rglru.ref import rglru_ref
 from . import layers as L
 from .transformer import _unbind, attn_cfg
 
@@ -90,14 +91,59 @@ def init_rglru_model(cfg, gen: torch.Generator, device="cpu"):
 
 
 # ---------------------------------------------------------------------------
+# RG-LRU core
+# ---------------------------------------------------------------------------
+
+def _combine(a1, b1, a2, b2):
+    """The scan's operator on ``(a, b)`` pairs: ``h -> a2 (a1 h + b1) + b2``."""
+    return a1 * a2, a2 * b1 + b2
+
+
+def _interleave(even, odd):
+    """``even[0], odd[0], even[1], ...`` along dim 1 (``even`` as long as
+    ``odd`` or one longer)."""
+    n = odd.shape[1]
+    out = torch.stack([even[:, :n], odd], 2).flatten(1, 2)
+    return out if even.shape[1] == n else torch.cat([out, even[:, n:]], 1)
+
+
+def _associative_scan(a, b):
+    """Inclusive scan of :func:`_combine` along dim 1 by
+    ``jax.lax.associative_scan``'s odd/even recursion: combine adjacent
+    pairs, scan those (half the length), then fill in the even positions;
+    about 2 log2(S) levels, and under autograd about twice the inputs'
+    memory."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    oa, ob = _associative_scan(*_combine(a[:, 0:-1:2], b[:, 0:-1:2],
+                                         a[:, 1::2], b[:, 1::2]))
+    tail = slice(None, -1) if n % 2 == 0 else slice(None)
+    ea, eb = _combine(oa[:, tail], ob[:, tail], a[:, 2::2], b[:, 2::2])
+    ea, eb = torch.cat([a[:, :1], ea], 1), torch.cat([b[:, :1], eb], 1)
+    return _interleave(ea, oa), _interleave(eb, ob)
+
+
+def rg_lru_scan(a, bx, h0=None):
+    """``h_t = a_t * h_{t-1} + bx_t`` over dim 1 (the sequence), the
+    reference's associative scan, with ``h0`` folded into ``bx[:, 0]``.
+    a, bx: (B, S, W); h0: (B, W) or None.  Returns h (B, S, W)."""
+    if h0 is not None:
+        bx = torch.cat([(bx[:, 0] + a[:, 0] * h0)[:, None], bx[:, 1:]], 1)
+    return _associative_scan(a, bx)[1]
+
+
+# ---------------------------------------------------------------------------
 # RG-LRU block
 # ---------------------------------------------------------------------------
 
 def rec_block(cfg, lp, x, *, state=None, conv_buf=None, plain=False):
     """Griffin recurrent block.  Returns ``(out, new_state, new_conv_tail)``;
     one token with a state is a plain decode step, anything else runs the
-    scan (from ``state``, or zeros): the kernel, or with ``plain`` its
-    plain version (the loss, under autograd)."""
+    scan (from ``state``, or zeros): the kernel on CUDA tensors, or, with
+    ``plain`` (training, under autograd) or on another device, the
+    reference's associative scan.  On DTensors the scan runs on each
+    rank's rows."""
     h = L.rmsnorm(lp["ln"], x)
     dt = h.dtype
     gate = F.gelu(torch.einsum("bsd,dw->bsw", h, lp["w_gate"].to(dt)),
@@ -107,8 +153,9 @@ def rec_block(cfg, lp, x, *, state=None, conv_buf=None, plain=False):
     cw, s = cfg.conv_width, u.shape[1]
     if conv_buf is not None:
         ctx = torch.cat([conv_buf.to(u.dtype), u], dim=1)
-    else:
-        ctx = F.pad(u, (0, 0, cw - 1, 0))
+    else:       # zeros before the first step (a concatenation, as
+        # rwkv6.py::_shifted explains)
+        ctx = torch.cat([torch.zeros_like(u[:, :1])] * (cw - 1) + [u], 1)
     conv = ctx[:, :s] * lp["conv_w"][cw - 1].to(u.dtype)
     for j in range(1, cw):
         conv = conv + ctx[:, j:j + s] * lp["conv_w"][cw - 1 - j].to(u.dtype)
@@ -128,8 +175,11 @@ def rec_block(cfg, lp, x, *, state=None, conv_buf=None, plain=False):
     if s == 1 and state is not None:                     # decode: one step
         hs = (a[:, 0] * state + bx[:, 0])[:, None]
         new_state = hs[:, 0]
+    elif plain or a.device.type != "cuda":
+        hs = L.local_rows(rg_lru_scan, a, bx, state)
+        new_state = hs[:, -1]
     else:
-        hs, new_state = (rglru_ref if plain else lru_scan)(a, bx, state)
+        hs, new_state = L.local_rows(lru_scan, a, bx, state)
     out = torch.einsum("bsw,wd->bsd", gate * hs.to(gate.dtype),
                        lp["wo"].to(gate.dtype))
     return out, new_state, new_conv_tail
@@ -143,16 +193,16 @@ def _ring(k, positions, wnd):
     """(B, S, KV, hd) fresh keys -> the (B, wnd, KV, hd) ring buffer of
     the last ``min(wnd, S)`` of them, slot = position % wnd."""
     take = min(wnd, k.shape[1])
-    buf = torch.zeros((k.shape[0], wnd) + tuple(k.shape[2:]), dtype=k.dtype,
-                      device=k.device)
+    buf = k.new_zeros((k.shape[0], wnd) + tuple(k.shape[2:]))
     buf[:, positions[-take:] % wnd] = k[:, -take:]
     return buf
 
 
-def _att_block(acfg, ap, x, positions, fresh):
+def _att_block(cfg, ap, x, positions, fresh):
     """A local-attention layer over fresh keys: ``(out, (k, v))``."""
-    return L.attention(ap["attn"], acfg, L.rmsnorm(ap["ln"], x), positions,
-                       fresh=fresh)
+    return L.attention(ap["attn"], attn_cfg(cfg), L.rmsnorm(ap["ln"], x),
+                       positions, fresh=fresh, q_block=cfg.q_block,
+                       kv_block=cfg.kv_block)
 
 
 def _mlp_block(cfg, lm, x):
@@ -160,16 +210,17 @@ def _mlp_block(cfg, lm, x):
 
 
 def forward(cfg, params, tokens, *, caches=None, cache_len=None,
-            last_only=False, return_hidden=False, plain=False):
+            collect=False, last_only=False, return_hidden=False):
     """Returns ``(logits, caches)`` (the final-normed hidden states in
     place of the logits with ``return_hidden``).
 
     caches: the decode state (see :func:`init_cache`), updated in place.
-    Without caches the call is a prefill (the reference's ``collect``
-    mode): it builds fresh caches from a full pass, and its attention runs
-    through the flash attention kernel and its scans through the RG-LRU
-    kernel; with ``plain`` (the loss) through the plain ``sdpa`` and the
-    plain scan, as the reference trains."""
+    ``collect=True`` (a prefill): build fresh caches from a full pass, on
+    CUDA tensors its scans through the RG-LRU kernel and its attention
+    through the flash attention kernel.  Neither (training, as the
+    reference's loss): no cache is built (``caches`` comes back None), the
+    scans run the reference's associative scan and attention the
+    blockwise ``sdpa``, under autograd."""
     kinds = _layer_kinds(cfg)
     acfg = attn_cfg(cfg)
     x = L.embed(params["embed"], tokens, dtype=cfg.act_dtype)
@@ -179,6 +230,7 @@ def forward(cfg, params, tokens, *, caches=None, cache_len=None,
     wnd = cfg.window or s
 
     decode_mode = caches is not None
+    plain = not (decode_mode or collect)
     if decode_mode:
         write_idx = cache_len % wnd
         caches["kv_pos"][write_idx] = cache_len
@@ -198,7 +250,7 @@ def forward(cfg, params, tokens, *, caches=None, cache_len=None,
             if decode_mode:
                 caches["state"][ri] = new_state
                 caches["conv"][ri] = new_buf
-            else:
+            elif collect:
                 out_caches["state"].append(new_state)
                 out_caches["conv"].append(new_buf)
             ri += 1
@@ -209,12 +261,14 @@ def forward(cfg, params, tokens, *, caches=None, cache_len=None,
                     ap["attn"], acfg, L.rmsnorm(ap["ln"], x), positions,
                     kv_cache=(caches["kv_k"][ai], caches["kv_v"][ai]),
                     cache_len=cache_len, cache_write_idx=write_idx,
-                    cache_positions=caches["kv_pos"])
+                    cache_positions=caches["kv_pos"], q_block=cfg.q_block,
+                    kv_block=cfg.kv_block)
             else:
-                o, (k, v) = L.remat(cfg, _att_block, acfg, ap, x, positions,
-                                    not plain)
-                out_caches["kv_k"].append(_ring(k, positions, wnd))
-                out_caches["kv_v"].append(_ring(v, positions, wnd))
+                o, (k, v) = L.remat(cfg, _att_block, cfg, ap, x, positions,
+                                    collect)
+                if collect:
+                    out_caches["kv_k"].append(_ring(k, positions, wnd))
+                    out_caches["kv_v"].append(_ring(v, positions, wnd))
             x = x + o
             ai += 1
         x = L.remat(cfg, _mlp_block, cfg, mlp[li], x)
@@ -226,6 +280,8 @@ def forward(cfg, params, tokens, *, caches=None, cache_len=None,
 
     if decode_mode:
         return logits, caches
+    if not collect:
+        return logits, None
     new_caches = {k: (torch.stack(v) if v else torch.zeros((0,),
                                                            device=x.device))
                   for k, v in out_caches.items()}
@@ -237,11 +293,11 @@ def forward(cfg, params, tokens, *, caches=None, cache_len=None,
 
 
 def loss_fn(cfg, params, batch):
-    """Next-token loss on ``batch["tokens"]`` (B, S + 1), through the
-    plain attention and scan."""
+    """Next-token loss on ``batch["tokens"]`` (B, S + 1): the cache-free
+    training forward, through the blockwise attention and the associative
+    scan."""
     tokens = batch["tokens"]
-    hidden, _ = forward(cfg, params, tokens[:, :-1], return_hidden=True,
-                        plain=True)
+    hidden, _ = forward(cfg, params, tokens[:, :-1], return_hidden=True)
     loss = L.chunked_unembed_xent(params["embed"], hidden, tokens[:, 1:],
                                   cfg.vocab)
     return loss, {"xent": loss}
@@ -271,7 +327,8 @@ def init_cache(cfg, batch, max_len, dtype=torch.bfloat16, device="cpu"):
 def prefill(cfg, params, tokens):
     """Run the prompt; returns the last position's logits (B, vocab_padded)
     and fresh caches."""
-    logits, caches = forward(cfg, params, tokens, last_only=True)
+    logits, caches = forward(cfg, params, tokens, collect=True,
+                             last_only=True)
     return logits[:, -1], caches
 
 

@@ -99,12 +99,13 @@ def wkv6_step(r, k, v, logw, u, s):
 def _shifted(xn, last):
     """The previous token of every position: ``last`` (B, d) before the
     first, zeros when there is none."""
-    if xn.shape[1] == 1 and last is not None:
-        return last[:, None, :].to(xn.dtype)
-    prev = F.pad(xn, (0, 0, 1, 0))[:, :-1]
-    if last is not None:
-        prev[:, 0] = last.to(xn.dtype)
-    return prev
+    first = torch.zeros_like(xn[:, :1]) if last is None \
+        else last[:, None, :].to(xn.dtype)
+    if xn.shape[1] == 1:
+        return first
+    # a concatenation, not a pad: a DTensor padded so failed the next op's
+    # sharding propagation on torch 2.11 (the card's)
+    return torch.cat([first, xn[:, :-1]], 1)
 
 
 def _ddlerp(p, x, sx):
@@ -145,9 +146,9 @@ def time_mix(cfg, p, x, *, state=None, last=None, plain=False):
         o, new_state = wkv6_step(rh[:, 0], kh[:, 0], vh[:, 0], wh[:, 0],
                                  p["u"], state)
         o = o[:, None]
-    else:
-        o, new_state = (wkv6_ref if plain else wkv)(rh, kh, vh, wh, p["u"],
-                                                    state)
+    else:       # on DTensors, on each rank's rows with the heads whole
+        o, new_state = L.local_rows(wkv6_ref if plain else wkv, rh, kh, vh,
+                                    wh, p["u"], state, whole=(4,))
     # per-head group norm, then the gate
     o32 = o.float()
     o32 = o32 * torch.rsqrt((o32 * o32).mean(-1, keepdim=True) + 1e-6)

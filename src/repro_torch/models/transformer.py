@@ -83,7 +83,8 @@ def _block(cfg, lp, x, positions, kv_cache=None, cache_len=None,
     x = L.seq_hint(x)   # residual stream sequence-sharded between layers
     h, _ = L.attention(lp["attn"], attn_cfg(cfg), L.rmsnorm(lp["ln1"], x),
                        positions, kv_cache=kv_cache, cache_len=cache_len,
-                       fresh=fresh)
+                       fresh=fresh, q_block=cfg.q_block,
+                       kv_block=cfg.kv_block)
     # each branch joins the stream through its own hint, so that on
     # DTensors its gradient comes back in the branch's own placement
     x = x + L.seq_hint(h)
@@ -104,7 +105,7 @@ def hidden_states(cfg, params, tokens, *, cache=None, cache_len=None,
     cache: ``(k, v)``, each (L, B, S_max, KV, hd), holding ``cache_len``
     valid positions; the new keys and values are written into it in
     place.  At ``cache_len`` 0 (a prefill) attention runs over the fresh
-    keys through the flash attention kernel."""
+    keys, through the flash attention kernel on CUDA tensors."""
     x = L.embed(params["embed"], tokens, dtype=cfg.act_dtype)
     base = 0 if cache_len is None else cache_len
     positions = base + torch.arange(tokens.shape[1], device=tokens.device)

@@ -6,8 +6,9 @@ path (the image prefix lives in the cache after prefill).
 
 The image prefix is causal with the text, as in the reference.  A prefill
 (``fresh=True``: the cache-less prefill, or a cache filled at
-``cache_len`` 0) runs its attention through the flash attention kernel;
-the loss and decode steps run the plain :func:`layers.sdpa`.
+``cache_len`` 0) on CUDA tensors runs its attention through the flash
+attention kernel; the loss, decode steps and a prefill on another device
+run the blockwise :func:`layers.sdpa`.
 """
 from __future__ import annotations
 

@@ -118,6 +118,17 @@ def test_mm_family_counted():
     assert st.dot_flops == 2 * 8 * 32 * 16 * (4 + 1 + 4 + 4)
 
 
+def test_meta_tensors_hold_no_memory():
+    """A tensor on the meta device (a shape, a stride) is no device's
+    memory: the recorder's live and peak bytes leave it out."""
+    from repro_torch.analysis.hlo import ProgramRecorder
+    x = torch.zeros(1000)
+    with ProgramRecorder() as rec:
+        y = x * 2
+        torch.empty((1 << 20, 1 << 20), device="meta").stride()
+    assert rec.peak_bytes == y.untyped_storage().nbytes() == 4000
+
+
 LOCAL_CODE = r"""
 import json, torch
 import torch.distributed as dist

@@ -150,12 +150,13 @@ def test_rglru_decode_matches_reference(rg):
 
 
 def test_rglru_prefill_logits_at_every_position_match_reference(rg):
-    """A forward without caches is a prefill (the reference's ``collect``
-    mode); its logits hold at every position, before and past the window."""
+    """A forward with ``collect`` is a prefill (as the reference's); its
+    logits hold at every position, before and past the window."""
     jcfg, tcfg, jparams, tparams, prompts, *_ = rg
     jlog, _ = jG.forward(jcfg, jparams, jnp.asarray(prompts), collect=True)
     with torch.inference_mode():
-        tlog, caches = tG.forward(tcfg, tparams, torch.from_numpy(prompts))
+        tlog, caches = tG.forward(tcfg, tparams, torch.from_numpy(prompts),
+                                  collect=True)
     assert tlog.shape == jlog.shape == (BATCH, PROMPT, tcfg.vocab_padded)
     assert set(caches) == {"kv_k", "kv_v", "state", "conv", "kv_pos"}
     assert _close(jlog, tlog)
