@@ -63,10 +63,15 @@ to a stacked gspmd run (its warm step, the program analyser's per-device
 counts of that step, its roofline terms and measured roofline share),
 GPipe over smollm-135m's layers on both fabrics, and the reduced training
 (edst and zero1) and a masked probe's flip over 4 gloo ranks on the host
-(multi-rank NCCL where the machine has two or more cards).  Beside the
-card's phases, one subprocess dry-runs smollm-135m's train_4k cell on a
-fake 16 x 16 group of 256 ranks on the host (``repro_torch.launch.dryrun``:
-it must exit 0, fit in 80 GB and issue collectives).  Beside
+(multi-rank NCCL where the machine has two or more cards); after every
+timed phase of the card, gspmd over 4 gloo ranks on the host with a real
+(2, 2) data x model mesh (tensor-parallel over model, FSDP over data) for
+the reduced smollm-135m, qwen3-8b, rwkv6-7b, olmoe-1b-7b and
+recurrentgemma-2b, each held to a stacked gspmd run.  Beside the card's
+phases, one subprocess dry-runs smollm-135m's and recurrentgemma-2b's
+train_4k cells and rwkv6-7b's long_500k cell on a fake 16 x 16 group of
+256 ranks on the host (``repro_torch.launch.dryrun``: each must exit 0,
+fit in 80 GB and issue collectives).  Beside
 WKV6's row it logs where the kernel's time goes ("wkv6 parts": copies
 with one part of its chunk loop compiled out, and mma.sync TF32 alone).
 Every failed check raises, so the exit code is non-zero and no result
@@ -1941,9 +1946,11 @@ def fabric_gspmd_families(per_run):
     parameters, the first step's loss equal and its grad norm within
     1e-6, the first move bit for bit or within 1e-5 of its size, the
     second step's loss and grad norm within 1e-5 of the stacked ones (a
-    move off by that much moves them by as little: DTensor's backward
-    adds some gradients in another order, so the move is not always bit
-    for bit), the peak within ``FABRIC_PEAK_SLACK`` of the stacked run's,
+    move off by that much moves them by as little; the step's clip summed
+    the squares of a transposed gradient, the tied embedding's, in another
+    order until the gspmd step made its gradients contiguous, and a card
+    may still choose other kernels for other layouts), the peak within
+    ``FABRIC_PEAK_SLACK`` of the stacked run's,
     and no kernel launched; each warm step logged beside the stacked
     one."""
     import dataclasses
@@ -1996,9 +2003,155 @@ def fabric_gspmd_families(per_run):
         torch.cuda.empty_cache()
 
 
+# --sync gspmd over 4 gloo ranks on the host with a real model axis: the
+# reduced configs of the five token families on a (2, 2) data x model mesh
+GLOO_GSPMD_ARCHS = ("smollm-135m", "qwen3-8b", "rwkv6-7b", "olmoe-1b-7b",
+                    "recurrentgemma-2b")
+GLOO_GSPMD_MESH, GLOO_GSPMD_NAMES = (2, 2), ("data", "model")
+GLOO_GSPMD_BATCH, GLOO_GSPMD_SEQ, GLOO_GSPMD_STEPS = 16, 16, 2
+GLOO_GSPMD_AUX = ("moe_load_balance", "moe_router_z")
+
+
+def gloo_gspmd_run(arch, mesh=None):
+    """Two gspmd steps of the reduced ``arch`` from the seed-0 init on the
+    seed-11 token batches: stacked (plain tensors, one process) without
+    ``mesh``, else with DTensor parameters placed on ``mesh`` by
+    ``dist/sharding.py`` (TP over ``model``, FSDP over ``data``).  Returns
+    each step's metrics, the whole parameters after each step (flat), the
+    first step's learning rate and, on a mesh, each parameter's local and
+    ``spec_for`` shard shapes."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.steps import full_values, make_train_step
+    from repro_torch.models.api import build
+    from repro_torch.optim import AdamW, cosine_schedule
+    api = build(configs.get(arch).reduced())
+    opt = AdamW(cosine_schedule(3e-4, 20, 100))
+    params = api.init(torch.Generator().manual_seed(0), "cpu")
+    tokens = np.random.RandomState(11).randint(
+        0, api.cfg.vocab, (GLOO_GSPMD_STEPS, GLOO_GSPMD_BATCH,
+                           GLOO_GSPMD_SEQ + 1))
+    out = {"metrics": [], "params": []}
+    if mesh is None:
+        step = make_train_step(api, opt, GLOO_GSPMD_MESH, GLOO_GSPMD_NAMES,
+                               mode="gspmd")
+    else:
+        sh = shd.tree_shardings(api.param_axes(), params, mesh, fsdp=True)
+        params = shd.distribute(params, sh)
+        out["shards"] = shd.map_axes(
+            lambda a, p, s: (tuple(p.to_local().shape),
+                             shd.local_shape(s.spec, p.shape, mesh)),
+            api.param_axes(), params, sh)
+        step = make_train_step(api, opt, GLOO_GSPMD_MESH, GLOO_GSPMD_NAMES,
+                               mode="gspmd", group=dist.group.WORLD)
+    state = opt.init(params)
+    for i in range(GLOO_GSPMD_STEPS):
+        params, state, met = step(params, state, {"tokens": torch.as_tensor(
+            tokens[i], dtype=torch.long)})
+        out["metrics"].append({k: float(v) for k, v in met.items()})
+        out["params"].append(flat_of(full_values(params)))
+    out["lr"] = out["metrics"][0]["lr"]
+    return out
+
+
+def gloo_gspmd_rank(rank, world, init, out_dir):
+    """One gloo rank of ``phase_gloo_gspmd``: :func:`gloo_gspmd_run` of
+    each family on the (2, 2) mesh, and the rank's kernel launches."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    torch.set_num_threads(1)
+    torchrun_env(rank, world)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world)
+    try:
+        mesh = make_mesh(GLOO_GSPMD_MESH, GLOO_GSPMD_NAMES)
+        reset_all()
+        out = {arch: gloo_gspmd_run(arch, mesh) for arch in GLOO_GSPMD_ARCHS}
+        out["launches"] = counts()
+        torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_gloo_gspmd(dev):
+    """``--sync gspmd`` over 4 gloo ranks on the card's host with a real
+    model axis: each family of ``GLOO_GSPMD_ARCHS`` (reduced), 2 steps of
+    16 x 16 tokens on a (2, 2) data x model mesh (parameters placed by
+    ``dist/sharding.py``: TP + FSDP), held to a stacked gspmd run of the
+    same config and batches in this process, within the gloo tests'
+    limits: each step's loss and xent within 1e-5, grad norm within 1e-5
+    relative, the MoE's ``moe_load_balance`` and ``moe_router_z`` within
+    1e-5; the first step's parameters within 2 lr + 1e-6 with under 1e-3
+    of them beyond 1e-6; every rank's local shards shaped as ``spec_for``
+    names, every rank ending with the same parameters, and no kernel
+    launched (the ranks and the stacked runs are host tensors).  The
+    ranks run through :func:`spawn_ranks` (a join timeout each).  Returns
+    ``{run: {kernel: launches}}``: the stacked runs' and the ranks'."""
+    del dev                                     # host tensors only
+    import torch
+    from repro_torch.optim.adamw import tree_leaves
+    per_run = {}
+    ref = {}
+    t0 = time.perf_counter()
+    for arch in GLOO_GSPMD_ARCHS:
+        reset_all()
+        ref[arch] = gloo_gspmd_run(arch)
+        per_run[f"gloo gspmd stacked {arch}"] = counts()
+    t1 = time.perf_counter()
+    ranks = spawn_ranks(gloo_gspmd_rank, GLOO_RANKS, ())
+    t2 = time.perf_counter()
+    per_run["gloo gspmd ranks"] = {
+        k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    for arch in GLOO_GSPMD_ARCHS:
+        want = ref[arch]
+        lr = want["lr"]
+        gaps = []
+        for r in ranks:
+            got = r[arch]
+            bad = [(a, s) for a, s in tree_leaves(got["shards"]) if a != s]
+            assert not bad, (arch, "shards not as spec_for names", bad)
+            for i, (g, w) in enumerate(zip(got["metrics"], want["metrics"])):
+                assert set(g) == set(w), (arch, sorted(g), sorted(w))
+                for k in ("loss", "xent") + tuple(
+                        k for k in GLOO_GSPMD_AUX if k in w):
+                    gaps.append((f"{k}{i}", abs(g[k] - w[k])))
+                    assert abs(g[k] - w[k]) <= 1e-5, (arch, i, k, g[k], w[k])
+                rel = abs(g["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
+                gaps.append((f"grad_norm{i} rel", rel))
+                assert rel <= 1e-5, (arch, i, g["grad_norm"], w["grad_norm"])
+            d = (got["params"][0] - want["params"][0]).abs()
+            gaps += [("first step's params max |d|", float(d.max())),
+                     ("their share beyond 1e-6",
+                      float((d > 1e-6).float().mean()))]
+            assert gaps[-2][1] <= 2 * lr + 1e-6, (arch, gaps[-2])
+            assert gaps[-1][1] < 1e-3, (arch, gaps[-1])
+            assert torch.equal(got["params"][-1], ranks[0][arch]["params"][-1])
+        worst = {}
+        for k, v in gaps:
+            worst[k] = max(worst.get(k, 0.0), v)
+        log(f"gloo gspmd {arch} (reduced, 4 ranks, {GLOO_GSPMD_MESH} "
+            f"data x model, {GLOO_GSPMD_BATCH} x {GLOO_GSPMD_SEQ}): losses "
+            f"{[m['loss'] for m in ranks[0][arch]['metrics']]} (stacked "
+            f"{[m['loss'] for m in want['metrics']]}), grad norms "
+            f"{[m['grad_norm'] for m in ranks[0][arch]['metrics']]} (stacked "
+            f"{[m['grad_norm'] for m in want['metrics']]}); worst gaps over "
+            f"the ranks {worst} (params' limit {2 * lr + 1e-6!r})")
+    log(f"gloo gspmd: stacked runs {t1 - t0!r} s, 4 ranks {t2 - t1!r} s; "
+        f"kernel launches {sum(sum(c.values()) for c in per_run.values())}")
+    assert all(sum(c.values()) == 0 for c in per_run.values()), per_run
+    return per_run
+
+
 # the dry run's cells, one after the other in one host subprocess on a fake
-# 16 x 16 group: an lm training cell and the recurrent decode cell
-DRYRUN_CELLS = (("smollm-135m", "train_4k"), ("rwkv6-7b", "long_500k"))
+# 16 x 16 group: an lm training cell, the recurrent decode cell, and the
+# training cell whose backward torch 2.11 refused before the models'
+# redistributions kept a partial sum's split gradient whole
+DRYRUN_CELLS = (("smollm-135m", "train_4k"), ("rwkv6-7b", "long_500k"),
+                ("recurrentgemma-2b", "train_4k"))
 DRYRUN_CODE = """
 import json, sys
 from repro_torch.launch.dryrun import run_cell
@@ -3716,7 +3869,9 @@ def main():
                      # last: the NCCL group's memory outside PyTorch's pool
                      # (its comm and streams) would take from the serving
                      # phase's f32 checks, which fill the card to within 1 GB
-                     ("fabric", phase_fabric)):
+                     ("fabric", phase_fabric),
+                     # host ranks, after every timed phase of the card
+                     ("gloo gspmd", phase_gloo_gspmd)):
         phases[name] = timed_phase(name, fn, dev)
     dry_s = timed_phase("dryrun wait", finish_dryrun, dryrun)
     log(f"dryrun subprocess seconds (beside the card's phases): {dry_s!r}")

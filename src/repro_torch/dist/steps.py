@@ -625,10 +625,17 @@ def _gspmd_body(loss_of, opt, grad_accum: int, telemetry: bool,
                 gs = torch.autograd.grad(lv, leaves)
                 grads = list(gs) if grads is None else \
                     [a + b for a, b in zip(grads, gs)]
+                del gs
                 losses.append(_full(lv.detach()))
                 auxs.append({k: _full(a.detach()) for k, a in aux.items()})
-            grads = [g.redistribute(mesh, p.placements)
-                     for g, p in zip(grads, leaves)]
+            # contiguous, as the stacked step's rows hold them: autograd
+            # leaves some gradients transposed (the tied embedding's), and
+            # the clip's sum of squares over a transposed tensor adds in
+            # another order than over the parameter's own layout (one
+            # gradient copied at a time)
+            for i, p in enumerate(leaves):
+                grads[i] = grads[i].redistribute(mesh, p.placements) \
+                    .contiguous()
             if grad_accum > 1:
                 grads = [g / grad_accum for g in grads]
             new_params, new_state, om = opt.apply(

@@ -480,11 +480,6 @@ def main(argv=None, keep_first_step: bool = False,
                  "reference runs the zero1 recovery loop in its "
                  "benchmarks/chaos_soak.py, which the port does not "
                  "carry)")
-    if args.recover and args.quantize_grads and args.edst_engine == "striped":
-        ap.error("--recover refuses --quantize-grads with --edst-engine "
-                 "striped: that engine's int8 allgather re-codes every hop, "
-                 "so its vertex rows differ by design and the controller "
-                 "would read every step's checksum spread as corruption")
     run, params, opt_state = setup(args, cfg)
     try:
         if args.trace_out and run.rank == 0:

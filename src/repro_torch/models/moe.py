@@ -81,6 +81,14 @@ def capacity(cfg: MoECfg, g: int) -> int:
     return max(4, -(-cap // 4) * 4)
 
 
+def combine_experts(combine, xout):
+    """``einsum("bgtec,bgecd->bgtd", combine, xout)``, the experts
+    labelled ``a``: torch's einsum flattens the contracted dims in the
+    order of their labels, and on DTensors the experts are split over
+    ``model``, which torch 2.11 refuses to flatten behind the slots."""
+    return torch.einsum("bgtac,bgacd->bgtd", combine, xout)
+
+
 def moe_layer(p, cfg: MoECfg, x):
     """x: (B, S, d) -> (out (B, S, d), aux losses dict)."""
     x = batch_hint(x)     # on DTensors: the sequence whole for the groups
@@ -116,8 +124,7 @@ def moe_layer(p, cfg: MoECfg, x):
     h_u = torch.einsum("bgecd,edf->bgecf", xin, p["wi_up"].to(dt))
     xout = torch.einsum("bgecf,efd->bgecd", F.silu(h_g) * h_u,
                         p["wo"].to(dt))
-    out = torch.einsum("bgtec,bgecd->bgtd", combine, xout)
-    out = out.reshape(b, s_pad, d)[:, :s]
+    out = combine_experts(combine, xout).reshape(b, s_pad, d)[:, :s]
 
     # aux losses (over the real experts only)
     n = cfg.n_experts

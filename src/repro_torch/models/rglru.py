@@ -137,6 +137,16 @@ def rg_lru_scan(a, bx, h0=None):
 # RG-LRU block
 # ---------------------------------------------------------------------------
 
+def _gate_logits(cf, w, bias):
+    """``cf @ w + bias`` in f32.  On DTensors the product is a partial sum
+    over ``model`` (it contracts the lanes split there), reduce-scattered
+    over the lanes before the split bias is added, as torch 2.13's add
+    does by itself: torch 2.11's add would turn the bias into a partial
+    sum instead, which it does not support.  (The convolution's bias
+    meets its sum the same way.)"""
+    return L.head_hint(torch.einsum("bsw,wv->bsv", cf, w.float()), 2) + bias
+
+
 def rec_block(cfg, lp, x, *, state=None, conv_buf=None, plain=False):
     """Griffin recurrent block.  Returns ``(out, new_state, new_conv_tail)``;
     one token with a state is a plain decode step, anything else runs the
@@ -159,14 +169,12 @@ def rec_block(cfg, lp, x, *, state=None, conv_buf=None, plain=False):
     conv = ctx[:, :s] * lp["conv_w"][cw - 1].to(u.dtype)
     for j in range(1, cw):
         conv = conv + ctx[:, j:j + s] * lp["conv_w"][cw - 1 - j].to(u.dtype)
-    conv = conv + lp["conv_b"].to(u.dtype)
+    conv = L.head_hint(conv, 2) + lp["conv_b"].to(u.dtype)
     new_conv_tail = ctx[:, ctx.shape[1] - (cw - 1):].clone()
 
     cf = conv.float()
-    r = torch.sigmoid(torch.einsum("bsw,wv->bsv", cf, lp["wa"].float())
-                      + lp["ba"])
-    i = torch.sigmoid(torch.einsum("bsw,wv->bsv", cf, lp["wi"].float())
-                      + lp["bi"])
+    r = torch.sigmoid(_gate_logits(cf, lp["wa"], lp["ba"]))
+    i = torch.sigmoid(_gate_logits(cf, lp["wi"], lp["bi"]))
     log_a = -C_RGLRU * F.softplus(lp["lam"]) * r         # <= 0
     a = torch.exp(log_a)
     mult = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
@@ -190,12 +198,18 @@ def rec_block(cfg, lp, x, *, state=None, conv_buf=None, plain=False):
 # ---------------------------------------------------------------------------
 
 def _ring(k, positions, wnd):
-    """(B, S, KV, hd) fresh keys -> the (B, wnd, KV, hd) ring buffer of
-    the last ``min(wnd, S)`` of them, slot = position % wnd."""
+    """(B, S, KV, hd) fresh keys at the consecutive ``positions`` -> the
+    (B, wnd, KV, hd) ring buffer of the last ``min(wnd, S)`` of them, slot
+    = position % wnd, the other slots zero.  A rotation by concatenation,
+    not an indexed write: torch 2.11 has no DTensor rule for
+    ``index_put_``."""
     take = min(wnd, k.shape[1])
-    buf = k.new_zeros((k.shape[0], wnd) + tuple(k.shape[2:]))
-    buf[:, positions[-take:] % wnd] = k[:, -take:]
-    return buf
+    buf = k[:, -take:]
+    if take < wnd:
+        buf = torch.cat([buf, k.new_zeros((k.shape[0], wnd - take)
+                                          + tuple(k.shape[2:]))], 1)
+    t = int(positions[-take]) % wnd        # the oldest kept key's slot
+    return torch.cat([buf[:, wnd - t:], buf[:, :wnd - t]], 1) if t else buf
 
 
 def _att_block(cfg, ap, x, positions, fresh):

@@ -87,7 +87,10 @@ def wkv6_step(r, k, v, logw, u, s):
     (B, H, N, N) f32.  Returns ``(o (B, H, N) in r's dtype, new state)``."""
     r32, k32, v32 = (x.float() for x in (r, k, v))
     kv = torch.einsum("bhn,bhm->bhnm", k32, v32)
-    o = torch.einsum("bhn,bhnm->bhm", r32, s + u.float()[..., None] * kv)
+    # a product and a sum over n, not a batched matrix product: on DTensors
+    # the batch and the heads are both split, and torch 2.11 refuses to
+    # flatten them into one batch dim
+    o = (r32[..., None] * (s + u.float()[..., None] * kv)).sum(-2)
     s_new = torch.exp(logw.float())[..., None] * s + kv
     return o.to(r.dtype), s_new
 

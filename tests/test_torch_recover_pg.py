@@ -26,8 +26,9 @@ vertices a rank):
   read by every rank as ``ag_replicas_equal`` False;
 * ``--trace-out`` (rank 0 writes) equal to the stacked run's trace, and
   ``timed_waves`` over the group with the stacked program's wave count;
-* ``--recover --zero1`` and ``--recover --quantize-grads`` on the striped
-  engine still refused.
+* ``--recover --zero1`` still refused, and ``--recover --quantize-grads``
+  on the striped engine committing every step with an empty journal on
+  every rank (the reference accepts it).
 """
 import json
 import os
@@ -253,15 +254,20 @@ def _restore_rows(ck, fabric):
 
 
 def _refusals() -> dict:
+    """Each option set's exit code where ``train.main`` refuses it, else
+    the run's committed steps and journal."""
     out = {}
     for what, extra in {"--recover --zero1": ["--zero1"],
                         "--recover --quantize-grads striped": [
                             "--quantize-grads", "--edst-engine",
                             "striped"]}.items():
         try:
-            train.main(RECOVER + extra)
+            res = train.main(RECOVER + extra)
         except SystemExit as e:
             out[what] = e.code
+        else:
+            out[what] = {"steps": len(res.losses),
+                         "journal": res.controller.journal_rows()}
     return out
 
 
@@ -464,5 +470,11 @@ def test_flipped_bit_reads_replicas_unequal_on_every_rank(rest, stacked):
 @pytest.mark.parametrize("what", ("--recover --zero1",
                                   "--recover --quantize-grads striped"))
 def test_still_refused_over_ranks(rest, what):
+    """``--recover --zero1`` is refused on every rank; ``--recover
+    --quantize-grads`` on the striped engine, refused before as the
+    reference never did, commits every step with no journal entry."""
     for r in rest[0]:
-        assert r["refused"].get(what) == 2, r["refused"]
+        if what == "--recover --zero1":
+            assert r["refused"].get(what) == 2, r["refused"]
+        else:
+            assert r["refused"][what] == {"steps": 4, "journal": []}

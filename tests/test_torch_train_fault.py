@@ -5,8 +5,9 @@ uninterrupted run, dense and sharded; ``--recover`` with no fault (held
 to ``psum_dp``: its entry 0 stripes by ``rebalance_chunks``, so not bit
 for bit the plain edst step), with a link killed from a step on (retry,
 flip, the step redone on the degraded class), and with a node lost
-(checkpoint and stop); and the refusals of ``--recover`` with ``--zero1``
-and with the striped engine's int8 wire."""
+(checkpoint and stop); the refusal of ``--recover`` with ``--zero1``, and
+``--recover`` on the striped engine's int8 wire, which runs as the
+reference's does."""
 import numpy as np
 import pytest
 import torch
@@ -144,11 +145,13 @@ def test_recover_with_zero1_is_refused():
 
 
 def test_recover_with_the_striped_int8_wire_is_refused():
-    """The striped engine's int8 allgather re-codes every hop, so its
-    rows differ by design: the controller would read every step as
-    payload corruption and never commit one."""
-    with pytest.raises(SystemExit):
-        train.main(BASE + ["--recover", "--quantize-grads", "--edst-engine",
-                           "striped", "--steps", "1"])
+    """No longer refused: as the reference does, ``--recover`` runs with
+    the striped engine's int8 wire.  Its rows agree (``sync_dev`` 0), so
+    the controller reads no corruption and commits every step, as it does
+    on the pipelined int8 wire."""
+    res = train.main(BASE + ["--recover", "--quantize-grads", "--edst-engine",
+                             "striped", "--steps", "2"])
+    assert len(res.losses) == 2 and res.controller.journal == []
+    assert float(res.metrics["sync_dev"]) == 0.0
     res = train.main(BASE + ["--recover", "--quantize-grads", "--steps", "1"])
     assert len(res.losses) == 1
