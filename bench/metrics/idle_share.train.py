@@ -1,0 +1,7 @@
+"""Share of the traced slice with no kernel, copy or fill on the card,
+in % (the train cells)."""
+from readers import idle_share
+
+
+def read(ctx):
+    return idle_share(ctx, "train")
