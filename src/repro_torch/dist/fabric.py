@@ -30,6 +30,10 @@ output is never built with ``torch.empty``.
 
 Index tensors, exchange plans and masks are built once per permutation /
 table and kept on the device, so a wave issues no host-to-device copy.
+
+Under a profiler ``ppermute``'s zero fill, local gather and cross-rank
+exchange run inside ``fabric/zero``, ``fabric/gather`` and ``fabric/p2p``
+ranges (:mod:`repro_torch.telemetry.spans`).
 """
 from __future__ import annotations
 
@@ -39,6 +43,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from ..telemetry.spans import span
 
 # the tensors each backend carries: a mismatch raises (nothing is staged
 # through the host, nothing falls back)
@@ -165,13 +171,16 @@ class _BlockFabric:
             _WIRE_LOG.append(WireCall(
                 _WAVE, x.dtype, x[0].numel() if x.shape[0] else 0,
                 x.numel() * x.element_size()))
-        out = torch.zeros_like(x)
+        with span("fabric/zero"):
+            out = torch.zeros_like(x)
         if perm:
             plan = self._perm(tuple(perm))
             if plan.src is not None:
-                out.index_copy_(0, plan.dst, x.index_select(0, plan.src))
+                with span("fabric/gather"):
+                    out.index_copy_(0, plan.dst, x.index_select(0, plan.src))
             if plan.ops:
-                self._exchange(x, out, plan.ops)
+                with span("fabric/p2p"):
+                    self._exchange(x, out, plan.ops)
         return out
 
     def psum(self, x):

@@ -45,6 +45,12 @@ domain, and allgather only the updated params.  ``fault_runtime`` (see
 :mod:`repro_torch.dist.fault`) makes the ``edst`` step failure-event
 aware: it takes a schedule id selecting among precompiled healthy,
 degraded and rebuilt tree programs, so a link failure is an id flip.
+
+Under a profiler each vertex's forward, backward and gradient copy run
+inside ``step/forward/v{v}``, ``step/backward/v{v}`` and
+``step/rows/v{v}`` ranges, the sync inside ``step/sync`` and AdamW inside
+``step/optim`` (:mod:`repro_torch.telemetry.spans`; not the ``gspmd``
+body over the ranks).
 """
 from __future__ import annotations
 
@@ -63,6 +69,7 @@ from ..core.collectives import (FusedAllreduceSpec, PipelinedAllreduceSpec,
 from ..core.edst_star import star_edsts
 from ..optim.adamw import tree_leaves
 from ..optim.sharded import ShardedAdamW, ShardedOptState, decay_mask
+from ..telemetry.spans import span
 from .fabric import (ProcessGroupFabric, StackedFabric, gather_blocks,
                      vertex_blocks, world_size)
 from .fault import FaultAwareAllreduce
@@ -411,15 +418,20 @@ def make_train_step(api, opt, mesh_shape, axis_names, mode: str = "edst",
             mlosses, maux = [], []
             for i, mb in enumerate(_split_batch(part, grad_accum,
                                                 "microbatches")):
-                lv, aux = loss_of(params, mb)
-                off = 0
-                for g in torch.autograd.grad(lv, leaves):
-                    dst = row[off:off + g.numel()]
-                    if i:
-                        dst.add_(g.reshape(-1))
-                    else:
-                        dst.copy_(g.reshape(-1))
-                    off += g.numel()
+                with span("step/forward/v", lo + v):
+                    lv, aux = loss_of(params, mb)
+                with span("step/backward/v", lo + v):
+                    gs = torch.autograd.grad(lv, leaves)
+                with span("step/rows/v", lo + v):
+                    off = 0
+                    for g in gs:
+                        dst = row[off:off + g.numel()]
+                        if i:
+                            dst.add_(g.reshape(-1))
+                        else:
+                            dst.copy_(g.reshape(-1))
+                        off += g.numel()
+                del gs
                 mlosses.append(lv.detach())
                 maux.append({k: a.detach() for k, a in aux.items()})
             if grad_accum > 1:
@@ -466,10 +478,12 @@ def make_train_step(api, opt, mesh_shape, axis_names, mode: str = "edst",
 
     def dense_step(params, opt_state, batch, sid):
         grads, loss, aux = local_grads(params, batch)
-        flat, tel = sync(grads, sid)
+        with span("step/sync"):
+            flat, tel = sync(grads, sid)
         del grads
-        new_params, new_state, om = opt.apply(
-            _detach(params), _unflatten(flat, params), opt_state)
+        with span("step/optim"):
+            new_params, new_state, om = opt.apply(
+                _detach(params), _unflatten(flat, params), opt_state)
         return new_params, new_state, {"loss": loss, **om, **aux, **tel}
 
     sopt = ShardedAdamW(opt)
@@ -485,7 +499,8 @@ def make_train_step(api, opt, mesh_shape, axis_names, mode: str = "edst",
     def zero1_step(params, opt_state, batch, sid):
         grads, loss, aux = local_grads(params, batch)
         fabric = fabric_on(grads.device)
-        owned_g = z_rs(grads, sid, fabric) / n
+        with span("step/sync"):
+            owned_g = z_rs(grads, sid, fabric) / n
         tel = {}
         if telemetry:
             tel["sync_dev"] = float(rs_conservation_gap(
@@ -503,12 +518,15 @@ def make_train_step(api, opt, mesh_shape, axis_names, mode: str = "edst",
         step = opt_state.step + 1
         # the n per-vertex partial sums in vertex order, summed as one
         # tensor: the stacked step's norm, bit for bit
-        gnorm = torch.sqrt(fabric.gather(sopt.partial_sumsq(owned_g)).sum())
-        new_op, mu, nu, lr = sopt.update_stripes(
-            owned_p, owned_g, owned_d, opt_state.mu, opt_state.nu, step,
-            gnorm)
+        with span("step/optim"):
+            gnorm = torch.sqrt(
+                fabric.gather(sopt.partial_sumsq(owned_g)).sum())
+            new_op, mu, nu, lr = sopt.update_stripes(
+                owned_p, owned_g, owned_d, opt_state.mu, opt_state.nu, step,
+                gnorm)
         del owned_g, owned_p, owned_d
-        rows = z_ag(new_op, sid, flat_p.shape, fabric)
+        with span("step/sync"):
+            rows = z_ag(new_op, sid, flat_p.shape, fabric)
         del new_op
         if telemetry:
             tel["ag_replicas_equal"] = replicas_equal(rows, fabric)

@@ -65,6 +65,7 @@ from ..core.collectives import (CostModel, FusedAllreduceSpec,
 from ..kernels.tree_combine.ops import (combine, q8_combine_rows,
                                         q8_pack_rows, q8_unpack_rows)
 from ..telemetry import metrics as _metrics
+from ..telemetry.spans import span
 from . import fabric as fabric_mod
 
 
@@ -235,9 +236,7 @@ def _scope(label: str):
     striped 2x8 torus's host-bound 4 MiB allreduce on an H100."""
     if fabric_mod.recording():
         return fabric_mod.in_wave(label)
-    if _WAVE_SCOPES and torch.autograd._profiler_enabled():
-        return torch.profiler.record_function(label)
-    return nullcontext()
+    return span(label) if _WAVE_SCOPES else nullcontext()
 
 
 def _wave_label(w: int, wv) -> str:

@@ -22,7 +22,11 @@ and the recovery controller retries, flips or rebuilds; a node loss
 checkpoints and stops, naming the relaunch onto the survivors through
 :mod:`repro_torch.launch.elastic`.  ``--profile-dir`` writes a
 ``torch.profiler`` trace of the loop (Chrome trace JSON; every step is a ``train/step{i}``
-range and every sync wave an ``edst/t*/w*/op`` range), ``--trace-out``
+range and every sync wave an ``edst/t*/w*/op`` range; inside a step each
+vertex's ``step/forward/v{v}``, ``step/backward/v{v}`` and
+``step/rows/v{v}``, then ``step/sync`` and ``step/optim``, and inside a
+wave the fabric's ``fabric/zero``, ``fabric/gather`` and ``fabric/p2p``:
+:mod:`repro_torch.telemetry.spans`), ``--trace-out``
 the predicted Perfetto trace of the compiled sync program
 (:mod:`repro_torch.telemetry.trace`), ``--metrics-out`` the metrics
 registry as JSON, ``--journal-out`` the recovery journal as JSONL.
@@ -160,7 +164,11 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--profile-dir", default=None,
                     help="write a torch.profiler trace of the training "
                          "loop into DIR (trace.json); the executors' "
-                         "edst/t*/w*/op ranges label every sync wave")
+                         "edst/t*/w*/op ranges label every sync wave, "
+                         "step/forward/v*, step/backward/v*, step/rows/v*, "
+                         "step/sync and step/optim the step's parts, and "
+                         "fabric/zero, fabric/gather and fabric/p2p the "
+                         "fabric's copies and cross-rank sends")
     ap.add_argument("--metrics-out", default=None,
                     help="dump the telemetry metrics registry (JSON) at "
                          "the end of the run")

@@ -8,8 +8,12 @@ module):
     measured timings;
   * :mod:`repro_torch.telemetry.timing`  -- the wave-by-wave timer on a
     stacked fabric: per-wave measured durations, residuals against the
-    CostModel's predictions, and calibration fitting.
+    CostModel's predictions, and calibration fitting;
+  * :mod:`repro_torch.telemetry.spans`   -- the profiler ranges around
+    the train step's passes, the optimizer and the fabric's copies.
 
+``spans`` is the port's own (the reference's ranges are ``named_scope``s
+of its traced programs), imported by the modules that open them.
 ``metrics`` is pure stdlib and imported eagerly; ``trace`` and ``timing``
 load on first use (``timing`` imports torch and the engines, which import
 ``metrics``).
