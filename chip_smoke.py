@@ -10,12 +10,17 @@ PyTorch version at ragged small shapes and at every shape its path gives
 it, and times it (flash attention in bf16, on the tensor cores, at all
 nine prefill layouts, full-mask and rectangular ones too, and in f32, on
 the CUDA cores, at recurrentgemma-2b's; beside SDPA, and at the causal
-ones without a window also SDPA's is_causal form); sums a
+ones without a window also SDPA's is_causal form; and its training
+direction, the forward with the row log-sum-exp and the bf16 backward,
+held element by element at smollm-135m's and olmoe-1b-7b's training
+shapes, a window, a full mask and ragged S, and timed beside SDPA's
+forward and backward); sums a
 full-size stacked gradient with every EDST engine (per-tree, fused,
 pipelined at 1 and 4 segments, striped; 4x4 torus f32 and int8, ring 16
 int8); trains the full-width smollm-135m (10 of its 30 layers)
 data-parallel over the 16
-vertices of the 4x4 torus (edst with each engine, edst + int8 wire,
+vertices of the 4x4 torus (attention on the flash kernels, each run's
+calls counted; edst with each engine, edst + int8 wire,
 psum_dp, and one profiled edst step whose trace it splits into the
 sync's waves) and of the ring 16 (edst + int8 wire, the fabric whose
 reduce hops run q8_combine); trains the full-width rwkv6-7b and
@@ -708,6 +713,161 @@ def phase_flash(dev):
     return row
 
 
+# the training attention of the benchmark's two train cells, (b, s, h, kv,
+# d), causal: smollm-135m's per-vertex call (16 x 2048, 9 heads over 3)
+# and olmoe-1b-7b's (4 x 4096, 16 over 16)
+FLASH_TRAIN = {"smollm-135m": (16, 2048, 9, 3, 64),
+               "olmoe-1b-7b": (4, 4096, 16, 16, 128)}
+# (b, s, h, kv, d, causal, window): the backward with a window, a full
+# mask and S not a multiple of its 64-key tiles
+FLASH_BWD_SMALL = ((2, 333, 6, 2, 64, True, 100),
+                   (2, 512, 4, 2, 128, False, None),
+                   (3, 77, 9, 3, 32, True, None),
+                   (2, 130, 4, 1, 128, True, 65))
+
+
+def phase_flash_train(dev):
+    """The training direction of flash attention: the forward with the row
+    log-sum-exp and the bf16 backward, at :data:`FLASH_BWD_SMALL` and at
+    the train cells' shapes (:data:`FLASH_TRAIN`).  The forward's output
+    bit for bit the serving forward's, its lse within 5e-5 of the plain
+    version's; dq, dk and dv element by element within
+    ``ref.py::bf16_bwd_bound`` around ``ref.py::attention_bwd_ref`` (at
+    the train shapes one batch row at a time); a second backward bit for
+    bit the first.  Returns the ``flash_attention_lse`` and
+    ``flash_attention_bwd`` rows at smollm-135m's shape, olmoe-1b-7b's
+    under ``other_shapes``: bounds 4 d and 10 d operations a live (query,
+    key) pair over the bf16 peak (the backward computes the scores and
+    dP twice, 14 d); library SDPA's forward, and its forward and backward
+    under autograd; beside the backward, the kernels' forward and
+    backward through autograd (``fwd_bwd_ms``) and the blockwise
+    ``layers.sdpa``'s, as training ran before them
+    (``blockwise_sdpa_fwd_bwd_ms``)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                          attention_ref_lse,
+                                                          bf16_bwd_bound)
+    from repro_torch.models import layers as L
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def inputs(b, s, h, kv, d):
+        return [torch.randn((b, s, n, d), generator=g, device=dev)
+                .to(torch.bfloat16) for n in (h, kv, kv, h)]
+
+    def check(q, k, v, dout, causal, window, *where):
+        """Returns out, lse, (dq, dk, dv), the largest |error| of dq, dk
+        and dv and the largest share of their bound."""
+        out, lse = FK.flash_attention(q, k, v, causal=causal, window=window,
+                                      lse=True)
+        grads = FK.flash_attention_bwd(q, k, v, out, dout, lse,
+                                       causal=causal, window=window)
+        assert torch.equal(out, FK.flash_attention(
+            q, k, v, causal=causal, window=window)), ("lse moved the "
+                                                      "output", *where)
+        again = FK.flash_attention_bwd(q, k, v, out, dout, lse,
+                                       causal=causal, window=window)
+        assert all(torch.equal(a, b_) for a, b_ in zip(grads, again)), (
+            "flash_attention_bwd not deterministic", *where)
+        del again
+        worst = share = lse_err = 0.0
+        for i in range(q.shape[0]):
+            x = [t[i:i + 1] for t in (q, k, v, out, dout, lse)]
+            _, lse_ref = attention_ref_lse(*(t.float() for t in x[:3]),
+                                           causal=causal, window=window)
+            lse_err = max(lse_err, float((x[5] - lse_ref).abs().max()))
+            del lse_ref
+            ref = attention_bwd_ref(*x, causal=causal, window=window)
+            bounds = bf16_bwd_bound(*x, ref, causal=causal, window=window)
+            for name, got, want, bound in zip(("dq", "dk", "dv"), grads,
+                                              ref, bounds):
+                err = (got[i:i + 1].float() - want).abs_()
+                assert bool(torch.isfinite(err).all()), (name, *where)
+                worst = max(worst, float(err.max()))
+                share = max(share, float(err.div_(bound).max()))
+            del ref, bounds
+        assert lse_err < 5e-5, ("flash_attention lse", *where, lse_err)
+        assert share <= 1.0, ("flash_attention_bwd over its per-element "
+                              "bound", *where, share)
+        return out, lse, grads, worst, share, lse_err
+
+    for b, s, h, kv, d, causal, window in FLASH_BWD_SMALL:
+        q, k, v, dout = inputs(b, s, h, kv, d)
+        check(q, k, v, dout, causal, window, b, s, h, kv, d)
+    torch.cuda.synchronize()
+    log("flash_attention_bwd: window, full and ragged shapes within the "
+        "bound of their roundings, bit for bit twice")
+
+    src = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+    # the reference trains through jax.grad of its blockwise sdpa
+    replaces = "src/repro/models/layers.py:301"
+    rows = {"flash_attention_lse": {}, "flash_attention_bwd": {}}
+    for arch, (b, s, h, kv, d) in FLASH_TRAIN.items():
+        q, k, v, dout = inputs(b, s, h, kv, d)
+        out, lse, grads, err, share, lse_err = check(q, k, v, dout, True,
+                                                     None, arch)
+        del grads
+        torch.cuda.empty_cache()
+        pairs = b * h * live_pairs(s, None)
+        qkv = sum(x.numel() * x.element_size() for x in (q, k, v))
+        o = out.numel() * out.element_size()
+        log(f"flash_attention_bwd at {arch}'s training {tuple(q.shape)} / "
+            f"{tuple(k.shape)} bf16, causal: {10 * d * pairs:.4g} "
+            f"operations; max|err| {err!r}, {share!r} of the per-element "
+            f"bound; lse max|err| {lse_err!r}")
+        qt, kt, vt, dt = (x.transpose(1, 2) for x in (q, k, v, dout))
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        leaves_t = [x.detach().requires_grad_(True) for x in (qt, kt, vt)]
+
+        def grad_of(fn, xs, dy):
+            return lambda: torch.autograd.grad(fn(*xs), xs, dy)
+
+        row = timed_row(
+            "flash_attention_lse", src, replaces, lse_err,
+            lambda: FK.flash_attention(q, k, v, lse=True),
+            lambda: attention_ref_lse(q, k, v),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True),
+            qkv + o + lse.numel() * 4, 4 * d * pairs, BF16_OPS_PER_S)
+        rows["flash_attention_lse"][arch] = row
+        row = timed_row(
+            "flash_attention_bwd", src, replaces, err,
+            lambda: FK.flash_attention_bwd(q, k, v, out, dout, lse),
+            lambda: attention_bwd_ref(q, k, v, out, dout, lse),
+            grad_of(lambda *x: F.scaled_dot_product_attention(
+                *x, is_causal=True, enable_gqa=True), leaves_t, dt),
+            # q, k, v, out, dout and lse in; dq, dk, dv out; rowsum(dO o O)
+            # written and read
+            2 * qkv + 2 * o + 3 * lse.numel() * 4, 10 * d * pairs,
+            BF16_OPS_PER_S)
+        row["bound_share"] = share
+        row["fwd_bwd_ms"] = timed(grad_of(fops.attention, leaves, dout))
+        cfg = L.AttnCfg(d_model=h * d, n_heads=h, n_kv=kv, head_dim=d)
+        pos = torch.arange(s, device=dev)
+        row["blockwise_sdpa_fwd_bwd_ms"] = timed(grad_of(
+            lambda *x: L.sdpa(*x, pos, pos, cfg), leaves, dout), rounds=3)
+        log(f"flash_attention at {arch}'s training: forward and backward "
+            f"through autograd {row['fwd_bwd_ms']:.3f} ms, the blockwise "
+            f"sdpa's {row['blockwise_sdpa_fwd_bwd_ms']:.3f} ms")
+        rows["flash_attention_bwd"][arch] = row
+        del q, k, v, dout, out, lse, qt, kt, vt, dt, leaves, leaves_t
+        torch.cuda.empty_cache()
+    out = []
+    for by_arch in rows.values():
+        row = by_arch.pop("smollm-135m")
+        row["shape"] = "smollm-135m train bf16"
+        row["other_shapes"] = {f"{arch} train bf16": {key: r[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "bound_share", "fwd_bwd_ms",
+            "blockwise_sdpa_fwd_bwd_ms") if key in r}
+            for arch, r in by_arch.items()}
+        out.append(row)
+    return out
+
+
 def phase_rglru(dev):
     """The RG-LRU scan against its plain version at ragged shapes and at
     the recurrentgemma-2b prefill's; returns its row."""
@@ -924,6 +1084,40 @@ def counts():
     for m in libraries().values():
         out.update(m.LAUNCHES)
     return out
+
+
+def sync_launches(c):
+    """The sync's kernel launches (tree_combine and the int8 codec) among
+    the counts ``c``: a gspmd run launches none of them, while its models
+    may launch their own (flash attention's forward and backward)."""
+    return sum(c[name] for name in libraries()["tree_combine"].LAUNCHES)
+
+
+def attention_counts(argv, layers, on_kernels):
+    """The training attention counters that a run of ``train.main(argv)``
+    with ``layers`` attention layers and remat on reads: a pass (each
+    vertex's batch a step; under gspmd the whole batch a step) runs each
+    layer's forward twice (the forward and remat's recompute) and its
+    backward once.  On the kernels each forward is the forward with the
+    row lse; elsewhere each counts in ``attention_sdpa_train``."""
+    def opt(name):
+        return argv[argv.index(name) + 1]
+    vertices = 1 if opt("--sync") == "gspmd" else math.prod(
+        int(n) for n in opt("--mesh").split(","))
+    calls = 2 * int(opt("--steps")) * vertices * layers
+    return {"flash_attention_lse": calls if on_kernels else 0,
+            "flash_attention_bwd": calls // 2 if on_kernels else 0,
+            "attention_sdpa_train": 0 if on_kernels else calls}
+
+
+def held_attention(tag, c, argv, layers, on_kernels, only=False):
+    """Assert the counts ``c`` of a training run: its attention counters
+    as :func:`attention_counts` gives them, and with ``only`` every other
+    counter 0."""
+    want = attention_counts(argv, layers, on_kernels)
+    if only:
+        want = {**dict.fromkeys(c, 0), **want}
+    assert {k: c[k] for k in want} == want, (tag, c, want)
 
 
 @contextlib.contextmanager
@@ -1474,8 +1668,9 @@ def train_cfg():
 
 def phase_train(dev):
     """Full-width smollm-135m (``TRAIN_LAYERS`` deep) through the training
-    entry point, one run per path.  Every launch counter is set to 0 just
-    before each run and read just after it; returns ``{run: {kernel:
+    entry point, one run per path, every attention call on the flash
+    kernels (:func:`held_attention`).  Every launch counter is set to 0
+    just before each run and read just after it; returns ``{run: {kernel:
     launches}}``."""
     import torch
     from repro_torch.launch import train
@@ -1493,6 +1688,7 @@ def phase_train(dev):
         per_run[tag] = counts()
         dt = time.perf_counter() - t0
         assert all(math.isfinite(v) for v in res.losses), (tag, res.losses)
+        held_attention(tag, per_run[tag], base + extra, TRAIN_LAYERS, True)
         log(f"train {tag}: losses {res.losses}, grad norms "
             f"{res.grad_norms}, s/step {res.step_seconds}, {dt!r}s in all, "
             f"launches {per_run[tag]}")
@@ -1840,7 +2036,9 @@ def fabric_gspmd(dev, per_run):
     model mesh; held to a stacked gspmd run of the same seed (bit for bit
     expected; the grad norms within 1e-6 and the first step's move within
     1e-5 of its size at least), its peak within ``FABRIC_PEAK_SLACK`` of
-    the stacked run's.  Then one warm step of the same run timed, the
+    the stacked run's, its launches the stacked run's (the flash kernels'
+    training calls, :func:`held_attention`, and no other).  Then one warm
+    step of the same run timed, the
     program analyser's per-device counts of the next step, the roofline
     terms of those counts and the measured roofline share (model FLOPs
     over the bf16 peak, over the warm step).  Then the other token
@@ -1855,9 +2053,13 @@ def fabric_gspmd(dev, per_run):
     from repro_torch.launch import train
     argv = GSPMD_TRAIN + ["--device", dev.type]
     cfg = train_cfg()
+    reset_all()
     torch.cuda.reset_peak_memory_stats()
     ref = train.main(argv, keep_first_step=True, cfg=cfg)
     ref_peak = torch.cuda.max_memory_allocated()
+    ref_c = counts()
+    held_attention("stacked gspmd", ref_c, argv, TRAIN_LAYERS, True,
+                   only=True)
     ref_p0, ref_p1 = flat_of(ref.init_params).cpu(), \
         flat_of(ref.first_step_params).cpu()
     ref_params, ref_losses, ref_gn = flat_of(ref.params).cpu(), \
@@ -1892,6 +2094,7 @@ def fabric_gspmd(dev, per_run):
         assert gn <= 1e-6, (tag, gn)
         assert equal or move <= 1e-5, (tag, move)
         assert peak <= ref_peak + FABRIC_PEAK_SLACK, (tag, peak, ref_peak)
+        assert c == ref_c, (tag, c, ref_c)
         del res
         torch.cuda.empty_cache()
 
@@ -1951,7 +2154,8 @@ def fabric_gspmd_families(per_run):
     order until the gspmd step made its gradients contiguous, and a card
     may still choose other kernels for other layouts), the peak within
     ``FABRIC_PEAK_SLACK`` of the stacked run's,
-    and no kernel launched; each warm step logged beside the stacked
+    no sync kernel launched (:func:`sync_launches`) and every counter
+    equal to the stacked run's; each warm step logged beside the stacked
     one."""
     import dataclasses
     import torch
@@ -1998,7 +2202,8 @@ def fabric_gspmd_families(per_run):
         assert max(gn[1], dloss) <= 1e-5, (tag, gn, dloss)
         assert peak <= ref["peak"] + FABRIC_PEAK_SLACK, (tag, peak,
                                                          ref["peak"])
-        assert sum(c.values()) == 0, (tag, c)
+        assert sync_launches(c) == 0, (tag, c)
+        assert c == ref["launches"], (tag, c, ref["launches"])
         del res, ref
         torch.cuda.empty_cache()
 
@@ -2694,6 +2899,10 @@ def phase_fabric(dev):
 # 2x2 torus would need about 73 GB); the others take the 2x2 torus (k = 1).
 FAMILY_TRAIN = (("rwkv6-7b", 1, "2,2,1"), ("olmoe-1b-7b", 1, "2,2,1"),
                 ("recurrentgemma-2b", 3, "2,1"))
+# (attention layers at FAMILY_TRAIN's depth, whether they train on the flash
+# kernels): recurrentgemma-2b's head dim 256 has no backward instance
+FAMILY_ATTN = {"rwkv6-7b": (0, True), "olmoe-1b-7b": (1, True),
+               "recurrentgemma-2b": (1, False)}
 # gspmd's one whole-batch pass rounds its bf16 activations and bf16 weight
 # gradients at other shapes than psum_dp's per-vertex passes: its grad norm
 # is held to one bf16 unit roundoff, and its move (Adam's first step, about
@@ -2719,9 +2928,12 @@ def phase_train_families(dev):
     steps under the profiler, whose second step ``trace_split`` splits.
     Losses finite, the MoE's
     aux metrics finite, ``tree_combine`` launched in every f32 edst run
-    and the int8 codec (pack, combine, unpack) in the int8 one, no kernel
-    in gspmd's; peak under 60 GB.  Each gspmd run's losses, grad norms,
-    step seconds, first step and peak stay on the host in
+    and the int8 codec (pack, combine, unpack) in the int8 one; each
+    run's attention counters as :func:`attention_counts` gives them for
+    ``FAMILY_ATTN``, and in gspmd's every other counter 0; peak under 60
+    GB.  Each
+    gspmd run's losses, grad norms, step seconds, first step, peak and
+    launches stay on the host in
     ``FAMILY_GSPMD_REF`` for ``fabric_gspmd``.
     Every launch counter is set to 0 just before each run and read just
     after it; returns ``{run: {kernel: launches}}``."""
@@ -2751,6 +2963,8 @@ def phase_train_families(dev):
             torch.cuda.synchronize()
             res.peak = torch.cuda.max_memory_allocated()
             per_run[tag] = c = counts()
+            held_attention(tag, c, base + extra, *FAMILY_ATTN[arch],
+                           only="gspmd" in extra)
             aux = {k: float(v) for k, v in res.metrics.items()
                    if k.startswith("moe_")}
             assert all(math.isfinite(v) for v in res.losses), (tag,
@@ -2785,7 +2999,8 @@ def phase_train_families(dev):
             res = run(tag, extra)
             c = per_run[tag]
             if sync == "gspmd":
-                assert sum(c.values()) == 0, (tag, c)
+                # and no other kernel but the attention's (held_attention)
+                assert sync_launches(c) == 0, (tag, c)
             elif sync == "edst":
                 assert c["tree_combine"] > 0, (tag, c)
             else:
@@ -2802,7 +3017,7 @@ def phase_train_families(dev):
                 FAMILY_GSPMD_REF[arch] = {
                     "losses": res.losses, "grad_norms": res.grad_norms,
                     "step_seconds": res.step_seconds, "p0": q0, "d": d,
-                    "peak": res.peak}
+                    "peak": res.peak, "launches": c}
             del res
             assert torch.equal(q0, p0), f"{tag}: a different init"
             del q0
@@ -3869,10 +4084,16 @@ def main():
                      # last: the NCCL group's memory outside PyTorch's pool
                      # (its comm and streams) would take from the serving
                      # phase's f32 checks, which fill the card to within 1 GB
-                     ("fabric", phase_fabric),
-                     # host ranks, after every timed phase of the card
-                     ("gloo gspmd", phase_gloo_gspmd)):
+                     ("fabric", phase_fabric)):
         phases[name] = timed_phase(name, fn, dev)
+    # the training direction of flash attention, beside its forward's row:
+    # its plain versions at the train shapes take some 30 GB in large
+    # blocks, which the training phases' allocations would have to share
+    # (recurrentgemma-2b's profiled step ran out of memory behind them)
+    flash_at = [r["name"] for r in rows].index("flash_attention") + 1
+    rows[flash_at:flash_at] = timed_phase("kernels", phase_flash_train, dev)
+    # host ranks, after every timed phase of the card
+    phases["gloo gspmd"] = timed_phase("gloo gspmd", phase_gloo_gspmd, dev)
     dry_s = timed_phase("dryrun wait", finish_dryrun, dryrun)
     log(f"dryrun subprocess seconds (beside the card's phases): {dry_s!r}")
     log("seconds by phase: " + ", ".join(f"{k} {v:.1f}"

@@ -56,6 +56,38 @@
 //     last wave holds the shortest tiles.
 //   - Still open: wgmma fed by TMA (mma.sync issues from each warp and
 //     reads K and V from shared memory once a warp, 8 times a tile).
+//   - With an lse pointer it also writes each row's log-sum-exp of the
+//     scaled scores, m + log(l) in the natural base (f32, (B * KV, S * G)
+//     in the kernel's row order), for the backward.  Without one (serving)
+//     the kernel does exactly what it did before, bit for bit.
+//
+// bf16 backward (flash_bwd_*_kernel; replaces no TPU kernel: the reference
+// trains through jax.grad of its blockwise sdpa): FlashAttention-2's
+// arithmetic.  D = rowsum(dO o O) (f32); p = exp(s / sqrt(D) - lse),
+// recomputed from q K^T and the forward's lse (no second softmax pass);
+// dV = p^T dO; dP = dO V^T; dS = p o (dP - D); dQ = dS K / sqrt(D);
+// dK = dS^T Q / sqrt(D).  p and dS are rounded to bf16 only as operands of
+// the bf16 products, as the forward rounds p; every sum is f32.  About 7
+// products of 2 D operations per live (query row, key) pair: 3.5 times the
+// forward's, so operations bind it as they bind the forward.  Three
+// launches on one stream, each with a fixed order of sums, so two calls
+// give the same bits (no atomics):
+//   - flash_bwd_dot_kernel: D, D / 8 lanes a row, in lse's layout;
+//   - flash_bwd_dkdv_kernel: one block owns 64 keys of one (batch, kv
+//     head), 16 a warp, holds their K and V in shared memory, and walks
+//     the query row tiles (64 rows of all G heads, row = s G + g) that
+//     see them, in a two-stage cp.async ring of q, dO, lse and D; dK and
+//     dV stay in registers, so a key tile's dK and dV sum all G heads in
+//     one block.  Products are keys x rows (K q^T, V dO^T) with the warp's
+//     K or V rows as A, and keys x D (p^T dO, dS^T q) with q and dO
+//     through ldmatrix.trans;
+//   - flash_bwd_dq_kernel: the forward's layout (128 rows of one (batch,
+//     kv head), 16 a warp, 64-key tiles in a two-stage ring of K and V,
+//     visiting only the tiles some row sees), dQ in registers; K as the B
+//     operand of dS K through ldmatrix.trans.
+// Masks, -1e30 scores and the skipping of fully masked tiles are the
+// forward's; masked p are 0.  Head dims 32, 64 and 128 (at 256 the dK and
+// dV accumulators alone would take every register of a thread).
 //
 // f32 (flash_fwd_kernel): full f32 products on the CUDA cores (the 2e-5
 // tolerance needs them), so the f32 rate is its ceiling.  The block's q
@@ -328,6 +360,8 @@ constexpr int kRows = 128;               // query rows per block
 constexpr int kKeys = 64;                // keys per tile
 constexpr int kStages = 2;               // K/V ring depth
 constexpr int kPad = 8;                  // bf16 of padding per smem row
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // 16-row fragments a warp: two where D <= 64, whose products are short,
 // so that each K or V fragment read from shared memory feeds two products
@@ -353,6 +387,12 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(valid ? 16 : 0));
+}
+// 4 bytes global -> shared, asynchronously; zero-filled when !valid
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -407,7 +447,8 @@ __global__ void __launch_bounds__(threads<D>(), D <= 64 ? 2 : 1)
 flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v,
-                      __nv_bfloat16* __restrict__ out, int S, int T_, int H,
+                      __nv_bfloat16* __restrict__ out,
+                      float* __restrict__ lse, int S, int T_, int H,
                       int KV, int causal, int window, float scale,
                       int n_tiles, int n_bh) {
   constexpr int MF = frags<D>();         // 16-row fragments a warp
@@ -491,7 +532,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       sq[f][hf] = (int)((rr < n_rows ? rr : n_rows - 1) / G);
     }
   // m is a row's running max of the base-2 scores; -1e30 stays the mask
-  const float scale_log2 = scale * 1.4426950408889634f;
+  const float scale_log2 = scale * kLog2e;
   float m[MF][2], l[MF][2], acc[MF][DT][4];
 #pragma unroll
   for (int f = 0; f < MF; ++f) {
@@ -652,6 +693,9 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     for (int hf = 0; hf < 2; ++hf) {
       const int64_t rr = row0 + 16 * f + 8 * hf;
       if (rr >= n_rows) continue;
+      if (lse != nullptr && tig == 0)    // m and l are the quad's, base 2
+        lse[(int64_t)bh * n_rows + rr] =
+            (m[f][hf] + log2f(fmaxf(l[f][hf], 1e-30f))) * kLn2;
       const float inv = 1.0f / fmaxf(l[f][hf], 1e-30f);
       const int sr = (int)(rr / G), h = kvh * G + (int)(rr % G);
       uint32_t* orow = reinterpret_cast<uint32_t*>(
@@ -664,9 +708,9 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int T_, int H, int KV, int causal, int window, float scale,
-           cudaStream_t s) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int S, int T_, int H, int KV, int causal,
+           int window, float scale, cudaStream_t s) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -677,8 +721,520 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
   flash_fwd_bf16_kernel<D><<<(unsigned int)blocks, threads<D>(), smem, s>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, S, T_, H, KV, causal,
-      window, scale, (int)n_tiles, B * KV);
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, lse, S, T_, H, KV,
+      causal, window, scale, (int)n_tiles, B * KV);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bf16 backward
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdKeys = 64;             // keys of a dK/dV block, 16 a warp
+constexpr int kBwdRows = 64;             // query rows of a dK/dV step
+constexpr int kBwdThreads = 32 * kBwdKeys / 16;
+constexpr int kDotThreads = 256;
+
+// ldmatrix lane offsets (bf16 elements, row stride LD), the forward's:
+// A operand of 16 rows; B operand from rows stored (n x k), two 8-column
+// fragments; B operand from rows stored (k x n) through .trans, two
+// 8-column fragments
+template <int LD>
+__device__ __forceinline__ uint32_t a_lane(int lane) {
+  return 2u * ((lane & 15) * LD + (lane >> 4) * 8);
+}
+template <int LD>
+__device__ __forceinline__ uint32_t b_lane(int lane) {
+  return 2u * (((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 8);
+}
+template <int LD>
+__device__ __forceinline__ uint32_t bt_lane(int lane) {
+  return 2u * (((lane & 7) + (((lane >> 3) & 1) << 3)) * LD + (lane >> 4) * 8);
+}
+
+// c[0..N) (16 x 8N f32) += A (16 x K rows at a_addr) * B^T (8N x K rows at
+// b_addr), both bf16 in shared memory with row stride LD
+template <int LD, int K, int N>
+__device__ __forceinline__ void mma_abt(float (&c)[N][4], uint32_t a_addr,
+                                        uint32_t b_addr) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(a, a_addr + kk * 32);
+#pragma unroll
+    for (int np = 0; np < N / 2; ++np) {
+      uint32_t b[4];
+      ldsm_x4(b, b_addr + 2u * (np * 16 * LD + kk * 16));
+      mma_bf16(c[2 * np], a, b[0], b[1]);
+      mma_bf16(c[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// c[0..N) (16 x 8N f32) += x (16 x K f32 accumulator fragments, rounded to
+// bf16 here) * B (K x 8N rows at bt_addr, through .trans)
+template <int LD, int K, int N>
+__device__ __forceinline__ void mma_xb(float (&c)[N][4],
+                                       const float (&x)[K / 8][4],
+                                       uint32_t bt_addr) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    const uint32_t a[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
+                           pack_bf16(x[2 * kk][2], x[2 * kk][3]),
+                           pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
+                           pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
+#pragma unroll
+    for (int np = 0; np < N / 2; ++np) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, bt_addr + 2u * (kk * 16 * LD + np * 16));
+      mma_bf16(c[2 * np], a, b[0], b[1]);
+      mma_bf16(c[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&c)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+}
+
+// dd = rowsum(dO o O) in f32, D / 8 lanes a row (16 bytes each), written
+// at lse's index of the row
+template <int D>
+__global__ void __launch_bounds__(kDotThreads)
+flash_bwd_dot_kernel(const __nv_bfloat16* __restrict__ o,
+                     const __nv_bfloat16* __restrict__ dout,
+                     float* __restrict__ dd, int S, int H, int KV,
+                     int64_t n) {
+  constexpr int CPR = D / 8;
+  const int64_t u = (int64_t)blockIdx.x * kDotThreads + threadIdx.x;
+  const int64_t row = u / CPR;           // (b * S + s) * H + h
+  const int c = (int)(u % CPR);
+  float sum = 0.f;
+  if (row < n) {
+    const uint4 a = *reinterpret_cast<const uint4*>(o + row * D + c * 8);
+    const uint4 g = *reinterpret_cast<const uint4*>(dout + row * D + c * 8);
+    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&g);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 fa = __bfloat1622float2(a2[i]);
+      const float2 fg = __bfloat1622float2(g2[i]);
+      sum = fmaf(fa.x, fg.x, sum);
+      sum = fmaf(fa.y, fg.y, sum);
+    }
+  }
+#pragma unroll
+  for (int off = CPR / 2; off > 0; off >>= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (row < n && c == 0) {
+    const int G = H / KV;
+    const int h = (int)(row % H);
+    const int64_t bs = row / H;
+    const int64_t b = bs / S;
+    dd[((b * KV + h / G) * S + bs % S) * G + h % G] = sum;
+  }
+}
+
+template <int D>
+constexpr size_t dkdv_smem_bytes() {
+  return sizeof(__nv_bfloat16) * (size_t)(2 * kBwdKeys +
+                                          2 * kStages * kBwdRows) *
+             (D + kPad) +
+         sizeof(float) * 2 * kStages * kBwdRows;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, D <= 64 ? 3 : 2)
+flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      const __nv_bfloat16* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ dd,
+                      __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv, int S, int T_, int H,
+                      int KV, int causal, int window, float scale,
+                      int n_bh) {
+  constexpr int NTH = kBwdThreads;
+  constexpr int LD = D + kPad;
+  constexpr int CPR = D / 8;
+  constexpr int NR = kBwdRows / 8;       // score fragments over a step's rows
+  constexpr int DT = D / 8;
+  static_assert(D % 32 == 0 && (kBwdKeys * CPR) % NTH == 0 &&
+                    (kBwdRows * CPR) % NTH == 0 && kBwdRows <= NTH,
+                "head_dim must be a multiple of 32");
+  extern __shared__ uint4 smem_dkdv[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_dkdv);
+  __nv_bfloat16* vs = ks + kBwdKeys * LD;
+  __nv_bfloat16* qs = vs + kBwdKeys * LD;            // kStages x kBwdRows
+  __nv_bfloat16* dos = qs + kStages * kBwdRows * LD;  // kStages x kBwdRows
+  float* ls = reinterpret_cast<float*>(dos + kStages * kBwdRows * LD);
+  float* ds = ls + kStages * kBwdRows;
+
+  // key tile 0, which the most rows see under a causal mask, first
+  const int tile = (int)(blockIdx.x / (unsigned int)n_bh);
+  const int bh = (int)(blockIdx.x % (unsigned int)n_bh);
+  const int G = H / KV;
+  const int b = bh / KV, kvh = bh % KV;
+  const int64_t n_rows = (int64_t)S * G;
+  const int k0 = tile * kBwdKeys;
+  const int k_last = min(k0 + kBwdKeys, T_) - 1;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+
+  // the row steps that see some key of this block
+  int64_t r_begin = causal ? (int64_t)k0 * G : 0, r_end = n_rows;
+  if (window > 0 && (int64_t)(k_last + window) * G < r_end)
+    r_end = (int64_t)(k_last + window) * G;
+  r_begin = (r_begin / kBwdRows) * kBwdRows;
+  const int n_it =
+      r_end > r_begin ? (int)((r_end - r_begin + kBwdRows - 1) / kBwdRows)
+                      : 0;
+
+  const int64_t key_stride = (int64_t)KV * D;
+  const __nv_bfloat16* kb = k + ((int64_t)b * T_ * KV + kvh) * D;
+  const __nv_bfloat16* vb = v + ((int64_t)b * T_ * KV + kvh) * D;
+  const float* lb = lse + (int64_t)bh * n_rows;
+  const float* db = dd + (int64_t)bh * n_rows;
+
+  // the block's K and V rows; keys past T are zeros
+#pragma unroll
+  for (int it = 0; it < kBwdKeys * CPR / NTH; ++it) {
+    const int u = tid + it * NTH;
+    const int r = u / CPR, c = u % CPR;
+    const bool ok = k0 + r < T_;
+    const int64_t off = ok ? (int64_t)(k0 + r) * key_stride + c * 8 : 0;
+    cp_async16(smem_u32(ks + r * LD + c * 8), kb + off, ok);
+    cp_async16(smem_u32(vs + r * LD + c * 8), vb + off, ok);
+  }
+  // q, dO, lse and D of rows r0..r0+63 into ring stage st; rows past the
+  // end are zeros
+  auto load_rows = [&](int64_t r0, int st) {
+    __nv_bfloat16* qd = qs + st * kBwdRows * LD;
+    __nv_bfloat16* gd = dos + st * kBwdRows * LD;
+#pragma unroll
+    for (int it = 0; it < kBwdRows * CPR / NTH; ++it) {
+      const int u = tid + it * NTH;
+      const int r = u / CPR, c = u % CPR;
+      const int64_t rr = r0 + r;
+      const bool ok = rr < n_rows;
+      int64_t off = 0;
+      if (ok) {
+        const int sq = (int)(rr / G), h = kvh * G + (int)(rr % G);
+        off = (((int64_t)b * S + sq) * H + h) * D + c * 8;
+      }
+      cp_async16(smem_u32(qd + r * LD + c * 8), q + off, ok);
+      cp_async16(smem_u32(gd + r * LD + c * 8), dout + off, ok);
+    }
+    if (tid < kBwdRows) {
+      const int64_t rr = r0 + tid;
+      const bool ok = rr < n_rows;
+      cp_async4(smem_u32(ls + st * kBwdRows + tid), lb + (ok ? rr : 0), ok);
+      cp_async4(smem_u32(ds + st * kBwdRows + tid), db + (ok ? rr : 0), ok);
+    }
+  };
+  if (n_it > 0) load_rows(r_begin, 0);
+  cp_async_commit();                     // group: K, V and the first step
+
+  const float scale_log2 = scale * kLog2e;
+  float dka[DT][4], dva[DT][4];
+  zero(dka);
+  zero(dva);
+  // this warp's 16 keys of K and V as A operands; a step's q and dO rows as
+  // B operands, straight and transposed
+  const uint32_t k_addr = smem_u32(ks + warp * 16 * LD) + a_lane<LD>(lane);
+  const uint32_t v_addr = smem_u32(vs + warp * 16 * LD) + a_lane<LD>(lane);
+  const uint32_t b_off = b_lane<LD>(lane), bt_off = bt_lane<LD>(lane);
+  const int key0 = k0 + warp * 16 + gid;  // keys key0 and key0 + 8
+
+  for (int it = 0; it < n_it; ++it) {
+    const int64_t r0 = r_begin + (int64_t)it * kBwdRows;
+    const int st = it & 1;
+    cp_async_wait_all();
+    __syncthreads();
+    if (it + 1 < n_it) load_rows(r0 + kBwdRows, st ^ 1);
+    cp_async_commit();
+    const uint32_t q_st = smem_u32(qs + st * kBwdRows * LD);
+    const uint32_t g_st = smem_u32(dos + st * kBwdRows * LD);
+    const float* l_st = ls + st * kBwdRows;
+    const float* d_st = ds + st * kBwdRows;
+
+    // p^T (16 keys x 64 rows a warp): scores K q^T, then
+    // exp2(s log2(e) / sqrt(D) - lse log2(e)), 0 where masked
+    float p[NR][4];
+    zero(p);
+    mma_abt<LD, D, NR>(p, k_addr, q_st + b_off);
+    const int s_lo = (int)(r0 / G);
+    const int s_hi =
+        (int)(((r0 + kBwdRows < n_rows ? r0 + kBwdRows : n_rows) - 1) / G);
+    const bool full = r0 + kBwdRows <= n_rows && k0 + kBwdKeys <= T_ &&
+                      (!causal || k0 + kBwdKeys - 1 <= s_lo) &&
+                      (window <= 0 || k0 > s_hi - window);
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+      const float2 lv = *reinterpret_cast<const float2*>(l_st + 8 * j + 2 * tig);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = exp2f(p[j][e] * scale_log2 -
+                        (e & 1 ? lv.y : lv.x) * kLog2e);
+        if (!full) {
+          const int64_t rr = r0 + 8 * j + 2 * tig + (e & 1);
+          const int kj = key0 + 8 * (e >> 1);
+          const int sr = (int)(rr / G);
+          bool live = rr < n_rows && kj < T_;
+          if (causal) live = live && kj <= sr;
+          if (window > 0) live = live && kj > sr - window;
+          x = live ? x : 0.f;
+        }
+        p[j][e] = x;
+      }
+    }
+    // dV += p^T dO
+    mma_xb<LD, kBwdRows, DT>(dva, p, g_st + bt_off);
+
+    // dS^T = p^T o (dP^T - D), dP^T = V dO^T
+    float dsc[NR][4];
+    zero(dsc);
+    mma_abt<LD, D, NR>(dsc, v_addr, g_st + b_off);
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+      const float2 dl = *reinterpret_cast<const float2*>(d_st + 8 * j + 2 * tig);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dsc[j][e] = p[j][e] * (dsc[j][e] - (e & 1 ? dl.y : dl.x));
+    }
+    // dK += dS^T q (scaled at the end)
+    mma_xb<LD, kBwdRows, DT>(dka, dsc, q_st + bt_off);
+  }
+  cp_async_wait_all();
+
+  // dK / sqrt(D) and dV of the keys that exist
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int kj = key0 + 8 * hf;
+    if (kj >= T_) continue;
+    const int64_t off = (((int64_t)b * T_ + kj) * KV + kvh) * D + 2 * tig;
+    uint32_t* dkr = reinterpret_cast<uint32_t*>(dk + off);
+    uint32_t* dvr = reinterpret_cast<uint32_t*>(dv + off);
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      dkr[j * 4] = pack_bf16(dka[j][2 * hf] * scale,
+                             dka[j][2 * hf + 1] * scale);
+      dvr[j * 4] = pack_bf16(dva[j][2 * hf], dva[j][2 * hf + 1]);
+    }
+  }
+}
+
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  return sizeof(__nv_bfloat16) * (size_t)(2 * kRows + 2 * kStages * kKeys) *
+         (D + kPad);
+}
+
+template <int D>
+__global__ void __launch_bounds__(2 * kRows, D <= 64 ? 2 : 1)
+flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    const __nv_bfloat16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ dd,
+                    __nv_bfloat16* __restrict__ dq, int S, int T_, int H,
+                    int KV, int causal, int window, float scale, int n_tiles,
+                    int n_bh) {
+  constexpr int NTH = 2 * kRows;         // 16 rows a warp
+  constexpr int LD = D + kPad;
+  constexpr int CPR = D / 8;
+  constexpr int NT = kKeys / 8;
+  constexpr int DT = D / 8;
+  static_assert(D % 32 == 0 && (kKeys * CPR) % NTH == 0 &&
+                    (kRows * CPR) % NTH == 0,
+                "head_dim must be a multiple of 32");
+  extern __shared__ uint4 smem_dq[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_dq);
+  __nv_bfloat16* dos = qs + kRows * LD;
+  __nv_bfloat16* ks = dos + kRows * LD;             // kStages x kKeys x LD
+  __nv_bfloat16* vs = ks + kStages * kKeys * LD;    // kStages x kKeys x LD
+
+  // the heaviest row tiles (the causal end) of every (batch, kv head) first
+  const int tile = n_tiles - 1 - (int)(blockIdx.x / (unsigned int)n_bh);
+  const int bh = (int)(blockIdx.x % (unsigned int)n_bh);
+  const int G = H / KV;
+  const int b = bh / KV, kvh = bh % KV;
+  const int64_t n_rows = (int64_t)S * G;
+  const int64_t r0 = (int64_t)tile * kRows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+
+  // the key tiles some row of this block can see
+  const int s_lo = (int)(r0 / G);
+  const int s_hi =
+      (int)(((r0 + kRows < n_rows ? r0 + kRows : n_rows) - 1) / G);
+  int k_begin = 0, k_end = T_;
+  if (causal) k_end = min(T_, s_hi + 1);
+  if (window > 0) k_begin = max(0, s_lo - window + 1);
+  k_begin = (k_begin / kKeys) * kKeys;
+  const int n_kt = k_end > k_begin ? (k_end - k_begin + kKeys - 1) / kKeys
+                                   : 0;
+
+  const int64_t key_stride = (int64_t)KV * D;
+  const __nv_bfloat16* kb = k + ((int64_t)b * T_ * KV + kvh) * D;
+  const __nv_bfloat16* vb = v + ((int64_t)b * T_ * KV + kvh) * D;
+
+  // the block's q and dO rows; rows past the end are zeros and write
+  // nothing
+#pragma unroll
+  for (int it = 0; it < kRows * CPR / NTH; ++it) {
+    const int u = tid + it * NTH;
+    const int r = u / CPR, c = u % CPR;
+    const int64_t rr = r0 + r;
+    const bool ok = rr < n_rows;
+    int64_t off = 0;
+    if (ok) {
+      const int sq = (int)(rr / G), h = kvh * G + (int)(rr % G);
+      off = (((int64_t)b * S + sq) * H + h) * D + c * 8;
+    }
+    cp_async16(smem_u32(qs + r * LD + c * 8), q + off, ok);
+    cp_async16(smem_u32(dos + r * LD + c * 8), dout + off, ok);
+  }
+  auto load_kv = [&](int k0, int st) {
+    __nv_bfloat16* kd = ks + st * kKeys * LD;
+    __nv_bfloat16* vd = vs + st * kKeys * LD;
+#pragma unroll
+    for (int it = 0; it < kKeys * CPR / NTH; ++it) {
+      const int u = tid + it * NTH;
+      const int r = u / CPR, c = u % CPR;
+      const bool ok = k0 + r < T_;
+      const int64_t off = ok ? (int64_t)(k0 + r) * key_stride + c * 8 : 0;
+      cp_async16(smem_u32(kd + r * LD + c * 8), kb + off, ok);
+      cp_async16(smem_u32(vd + r * LD + c * 8), vb + off, ok);
+    }
+  };
+  if (n_kt > 0) load_kv(k_begin, 0);
+  cp_async_commit();                     // group: q, dO and the first tile
+
+  // this thread's rows gid and gid + 8 of the warp's 16: their query
+  // position, lse (base 2) and D
+  const int64_t row0 = r0 + warp * 16 + gid;
+  int sq[2];
+  float lg[2], dl[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int64_t rr = row0 + 8 * hf;
+    const bool ok = rr < n_rows;
+    sq[hf] = (int)((ok ? rr : n_rows - 1) / G);
+    lg[hf] = ok ? lse[(int64_t)bh * n_rows + rr] * kLog2e : 0.f;
+    dl[hf] = ok ? dd[(int64_t)bh * n_rows + rr] : 0.f;
+  }
+  const float scale_log2 = scale * kLog2e;
+  float dqa[DT][4];
+  zero(dqa);
+  const uint32_t q_addr = smem_u32(qs + warp * 16 * LD) + a_lane<LD>(lane);
+  const uint32_t g_addr = smem_u32(dos + warp * 16 * LD) + a_lane<LD>(lane);
+  const uint32_t b_off = b_lane<LD>(lane), bt_off = bt_lane<LD>(lane);
+
+  for (int it = 0; it < n_kt; ++it) {
+    const int k0 = k_begin + it * kKeys;
+    const int st = it & 1;
+    cp_async_wait_all();
+    __syncthreads();
+    if (it + 1 < n_kt) load_kv(k0 + kKeys, st ^ 1);
+    cp_async_commit();
+    const uint32_t k_st = smem_u32(ks + st * kKeys * LD);
+    const uint32_t v_st = smem_u32(vs + st * kKeys * LD);
+
+    // p (16 rows x 64 keys a warp), as in the dK/dV kernel
+    float p[NT][4];
+    zero(p);
+    mma_abt<LD, D, NT>(p, q_addr, k_st + b_off);
+    const bool full = k0 + kKeys <= T_ &&
+                      (!causal || k0 + kKeys - 1 <= s_lo) &&
+                      (window <= 0 || k0 > s_hi - window);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = exp2f(p[j][e] * scale_log2 - lg[e >> 1]);
+        if (!full) {
+          const int kj = k0 + j * 8 + 2 * tig + (e & 1);
+          const int sr = sq[e >> 1];
+          bool live = kj < T_;
+          if (causal) live = live && kj <= sr;
+          if (window > 0) live = live && kj > sr - window;
+          x = live ? x : 0.f;
+        }
+        p[j][e] = x;
+      }
+    // dS = p o (dP - D), dP = dO V^T
+    float dsc[NT][4];
+    zero(dsc);
+    mma_abt<LD, D, NT>(dsc, g_addr, v_st + b_off);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dsc[j][e] = p[j][e] * (dsc[j][e] - dl[e >> 1]);
+    // dQ += dS K (scaled at the end)
+    mma_xb<LD, kKeys, DT>(dqa, dsc, k_st + bt_off);
+  }
+  cp_async_wait_all();
+
+  // dQ / sqrt(D) of the rows that exist
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int64_t rr = row0 + 8 * hf;
+    if (rr >= n_rows) continue;
+    const int sr = (int)(rr / G), h = kvh * G + (int)(rr % G);
+    uint32_t* dqr = reinterpret_cast<uint32_t*>(
+        dq + (((int64_t)b * S + sr) * H + h) * D + 2 * tig);
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+      dqr[j * 4] = pack_bf16(dqa[j][2 * hf] * scale,
+                             dqa[j][2 * hf + 1] * scale);
+  }
+}
+
+template <int D>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const float* lse, float* dd, void* dq,
+               void* dk, void* dv, int B, int S, int T_, int H, int KV,
+               int causal, int window, float scale, cudaStream_t s) {
+  const __nv_bfloat16 *q_ = (const __nv_bfloat16*)q,
+                      *k_ = (const __nv_bfloat16*)k,
+                      *v_ = (const __nv_bfloat16*)v,
+                      *g_ = (const __nv_bfloat16*)dout;
+  constexpr size_t smem_kv = dkdv_smem_bytes<D>(), smem_q = dq_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_kv);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem_q);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t n_bh = (int64_t)B * KV;
+  const int64_t dot_threads = (int64_t)B * S * H * (D / 8);
+  const int64_t dot_blocks = (dot_threads + kDotThreads - 1) / kDotThreads;
+  const int64_t kv_blocks = (int64_t)((T_ + kBwdKeys - 1) / kBwdKeys) * n_bh;
+  const int64_t q_tiles = ((int64_t)S * (H / KV) + kRows - 1) / kRows;
+  const int64_t q_blocks = q_tiles * n_bh;
+  if (dot_blocks > 0x7fffffff || kv_blocks > 0x7fffffff ||
+      q_blocks > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  flash_bwd_dot_kernel<D><<<(unsigned int)dot_blocks, kDotThreads, 0, s>>>(
+      (const __nv_bfloat16*)o, g_, dd, S, H, KV, (int64_t)B * S * H);
+  flash_bwd_dkdv_kernel<D><<<(unsigned int)kv_blocks, kBwdThreads, smem_kv,
+                             s>>>(q_, k_, v_, g_, lse, dd,
+                                  (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, S,
+                                  T_, H, KV, causal, window, scale,
+                                  (int)n_bh);
+  flash_bwd_dq_kernel<D><<<(unsigned int)q_blocks, 2 * kRows, smem_q, s>>>(
+      q_, k_, v_, g_, lse, dd, (__nv_bfloat16*)dq, S, T_, H, KV, causal,
+      window, scale, (int)q_tiles, (int)n_bh);
   return (int)cudaGetLastError();
 }
 
@@ -703,15 +1259,16 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 }
 
 // dtype 0 (f32) on the CUDA-core kernel, dtype 1 (bf16) on the tensor cores
+// (which alone writes lse)
 template <int D>
 int dispatch(int dtype, const void* q, const void* k, const void* v,
-             void* out, int B, int S, int T_, int H, int KV, int causal,
-             int window, float scale, cudaStream_t s) {
-  if (dtype == 0)
+             void* out, float* lse, int B, int S, int T_, int H, int KV,
+             int causal, int window, float scale, cudaStream_t s) {
+  if (dtype == 0 && lse == nullptr)
     return launch<float, D>(q, k, v, out, B, S, T_, H, KV, causal, window,
                             scale, s);
   if (dtype == 1)
-    return tc::launch<D>(q, k, v, out, B, S, T_, H, KV, causal, window,
+    return tc::launch<D>(q, k, v, out, lse, B, S, T_, H, KV, causal, window,
                          scale, s);
   return (int)cudaErrorInvalidValue;
 }
@@ -722,17 +1279,40 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  head_dim D in {32, 64, 128, 256};
 // window <= 0 means none.  q, out (B, S, H, D); k, v (B, T, KV, D), each
-// 16-byte aligned.
+// 16-byte aligned.  lse: NULL, or (bf16 only) f32 (B * KV, S * H / KV),
+// each row's log-sum-exp of the scaled scores at row s * G + g.
 int flash_attention(int dtype, const void* q, const void* k, const void* v,
-                    void* out, int B, int S, int T, int H, int KV, int D,
-                    int causal, int window, float scale, void* stream) {
+                    void* out, void* lse, int B, int S, int T, int H, int KV,
+                    int D, int causal, int window, float scale,
+                    void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  float* l = (float*)lse;
   if (B <= 0 || S <= 0 || T <= 0) return (int)cudaGetLastError();
   switch (D) {
-    case 32: return dispatch<32>(dtype, q, k, v, out, B, S, T, H, KV, causal, window, scale, s);
-    case 64: return dispatch<64>(dtype, q, k, v, out, B, S, T, H, KV, causal, window, scale, s);
-    case 128: return dispatch<128>(dtype, q, k, v, out, B, S, T, H, KV, causal, window, scale, s);
-    case 256: return dispatch<256>(dtype, q, k, v, out, B, S, T, H, KV, causal, window, scale, s);
+    case 32: return dispatch<32>(dtype, q, k, v, out, l, B, S, T, H, KV, causal, window, scale, s);
+    case 64: return dispatch<64>(dtype, q, k, v, out, l, B, S, T, H, KV, causal, window, scale, s);
+    case 128: return dispatch<128>(dtype, q, k, v, out, l, B, S, T, H, KV, causal, window, scale, s);
+    case 256: return dispatch<256>(dtype, q, k, v, out, l, B, S, T, H, KV, causal, window, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The bf16 backward of flash_attention: q, o, dout, dq (B, S, H, D); k, v,
+// dk, dv (B, T, KV, D), each 16-byte aligned; lse the forward's; dd f32
+// scratch of lse's shape.  head_dim D in {32, 64, 128}.
+int flash_attention_bwd(const void* q, const void* k, const void* v,
+                        const void* o, const void* dout, const void* lse,
+                        void* dd, void* dq, void* dk, void* dv, int B, int S,
+                        int T, int H, int KV, int D, int causal, int window,
+                        float scale, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* l = (const float*)lse;
+  float* d_ = (float*)dd;
+  if (B <= 0 || S <= 0 || T <= 0) return (int)cudaGetLastError();
+  switch (D) {
+    case 32: return tc::launch_bwd<32>(q, k, v, o, dout, l, d_, dq, dk, dv, B, S, T, H, KV, causal, window, scale, s);
+    case 64: return tc::launch_bwd<64>(q, k, v, o, dout, l, d_, dq, dk, dv, B, S, T, H, KV, causal, window, scale, s);
+    case 128: return tc::launch_bwd<128>(q, k, v, o, dout, l, d_, dq, dk, dv, B, S, T, H, KV, causal, window, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

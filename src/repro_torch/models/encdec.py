@@ -11,10 +11,12 @@ the card (``fresh=True``, which the serving callers set, on CUDA
 tensors): the encoder's (full mask), the decoder's self-attention (causal,
 over the fresh keys of a cache-less prefill or of a cache filled at
 ``cache_len`` 0) and the cross-attention over the encoder's keys (full,
-S_dec x T_enc).  The loss (autograd), single-token decode steps and a
-prefill on another device run the blockwise :func:`L.sdpa` in
-``cfg.q_block`` x ``cfg.kv_block`` blocks, as the reference computes it
-outside any kernel.  Layer parameters are
+S_dec x T_enc).  The loss's encoder and decoder self-attention on the
+card take the flash kernels, forward and backward, where
+:func:`L.attention` finds that they compute what ``sdpa`` does.  The
+loss's cross-attention, single-token decode steps and the rest run the
+blockwise :func:`L.sdpa` in ``cfg.q_block`` x ``cfg.kv_block`` blocks, as
+the reference computes it outside any kernel.  Layer parameters are
 stacked along a leading ``layers`` dimension, as the reference stacks
 them for its ``scan``; the forward unbinds them and loops.
 """

@@ -9,11 +9,13 @@ Every layer loop runs its body through :func:`remat`, the reference's
 Parameters are plain dicts of tensors that mirror the reference's tree key
 for key (``repro/models/layers.py``).  The casts follow the reference
 exactly: parameters stay f32 and are cast to the activation dtype where
-they are used; norms and the softmax run in f32.  Attention is plain
-matmuls, an f32 softmax and the ``-1e30`` mask, as the reference computes
-it outside any kernel (blockwise, in ``cfg.q_block`` x ``cfg.kv_block``
-blocks), except a prefill's attention over fresh keys on the card, which
-runs through the flash attention kernel.
+they are used; norms and the softmax run in f32.  On the card, attention
+over the queries' own keys (training, and a prefill over fresh keys) runs
+through the flash attention kernels, forward and backward, where they
+compute what the reference's masks do (:func:`attention` says when).
+Elsewhere it is plain matmuls, an f32 softmax and the ``-1e30`` mask, as
+the reference computes it outside any kernel (blockwise, in
+``cfg.q_block`` x ``cfg.kv_block`` blocks).
 """
 from __future__ import annotations
 
@@ -27,6 +29,9 @@ import torch.utils.checkpoint
 from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels.flash_attention.kernel import BWD_HEAD_DIMS
+from ..kernels.flash_attention.kernel import LAUNCHES as FLASH_LAUNCHES
+from ..kernels.flash_attention.ops import aligned as flash_aligned
 from ..kernels.flash_attention.ops import attention as flash_attention
 
 # f32 matrix products run in full f32 on the card, as in the reference
@@ -372,9 +377,18 @@ def attention(p, cfg: AttnCfg, x, positions, *, kv_cache=None,
     see only the S fresh keys (no cache, or an empty one), so on CUDA
     tensors attention runs through the flash attention kernel
     (``causal=False`` for a full mask, which ignores the window as the
-    reference's mask does).  Everywhere else (training, decode, a prefill
-    on another device) it is the blockwise :func:`sdpa` in ``q_block`` x
-    ``kv_block`` blocks, as the reference computes it outside any kernel.
+    reference's mask does).  Without a cache (training) the queries also
+    see their own S keys, at consecutive positions, and the kernels, the
+    forward and its backward, compute exactly what :func:`sdpa` would where
+    the input shows that they can: CUDA tensors in bf16 with a head dim in
+    ``BWD_HEAD_DIMS`` (the backward's instances), causal or a full mask
+    over block-aligned keys.  This adapts to the input's shape and type,
+    with no option.  On DTensors the kernels run on each rank's rows, as
+    :func:`sdpa` does.  Everywhere else (decode, f32, other head dims or
+    devices) it is the blockwise :func:`sdpa` in ``q_block`` x
+    ``kv_block`` blocks, as the reference computes it outside any kernel;
+    a call there that records a gradient on the card counts in the flash
+    kernels' ``LAUNCHES["attention_sdpa_train"]``.
     """
     dt = x.dtype
     s = x.shape[1]
@@ -416,15 +430,28 @@ def attention(p, cfg: AttnCfg, x, positions, *, kv_cache=None,
             else:
                 kv_pos = torch.arange(kc.shape[1], device=x.device)
                 valid_len = cache_len + s
-    if fresh and q.device.type == "cuda":
+    on_card = q.device.type == "cuda"
+    if on_card and (fresh or kv_cache is None and _flash_trains(
+            q, k, mask_mode)):
         causal = mask_mode == "causal"
-        out = flash_attention(q, k, v, causal=causal,
-                              window=cfg.window if causal else None)
+        out = head_hint(local_rows(functools.partial(
+            flash_attention, causal=causal,
+            window=cfg.window if causal else None), q, k, v), 2)
     else:
+        if on_card and torch.is_grad_enabled() and q.requires_grad:
+            FLASH_LAUNCHES["attention_sdpa_train"] += 1
         out = sdpa(q, k, v, positions, kv_pos, cfg, mask_mode,
                    valid_len=valid_len, q_block=q_block, kv_block=kv_block)
     return torch.einsum("bshk,hkd->bsd", out,
                         _whole(p["wo"], (1,)).to(dt)), new_cache
+
+
+def _flash_trains(q, k, mask_mode) -> bool:
+    """Whether the flash kernels, forward and backward, compute what
+    :func:`sdpa` would for these cache-free CUDA inputs (see
+    :func:`attention`)."""
+    return (q.dtype == torch.bfloat16 and q.shape[-1] in BWD_HEAD_DIMS
+            and (mask_mode == "causal" or flash_aligned(k.shape[1])))
 
 
 def _mask(qp, kp, cfg: AttnCfg, mask_mode, valid_len=None):

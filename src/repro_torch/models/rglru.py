@@ -234,7 +234,8 @@ def forward(cfg, params, tokens, *, caches=None, cache_len=None,
     through the flash attention kernel.  Neither (training, as the
     reference's loss): no cache is built (``caches`` comes back None), the
     scans run the reference's associative scan and attention the
-    blockwise ``sdpa``, under autograd."""
+    blockwise ``sdpa`` (the flash backward has no head dim 256), under
+    autograd."""
     kinds = _layer_kinds(cfg)
     acfg = attn_cfg(cfg)
     x = L.embed(params["embed"], tokens, dtype=cfg.act_dtype)

@@ -7,8 +7,9 @@ path (the image prefix lives in the cache after prefill).
 The image prefix is causal with the text, as in the reference.  A prefill
 (``fresh=True``: the cache-less prefill, or a cache filled at
 ``cache_len`` 0) on CUDA tensors runs its attention through the flash
-attention kernel; the loss, decode steps and a prefill on another device
-run the blockwise :func:`layers.sdpa`.
+attention kernel, and so does the loss, forward and backward, where
+:func:`layers.attention` finds that the kernels compute what ``sdpa``
+does; decode steps and the rest run the blockwise :func:`layers.sdpa`.
 """
 from __future__ import annotations
 
